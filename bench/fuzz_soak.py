@@ -6,7 +6,7 @@ forced-IVF cells — so regressions that only surface under rarer operation
 interleavings are caught before a release. CPU-only (the oracle model is
 the host); run it detached:
 
-    python bench/fuzz_soak.py --seeds 3:43 | tee bench/results/fuzz_soak_rN.log
+    python bench/fuzz_soak.py --seeds 3:43 | tee fuzz_soak.log
 
 Exit code 0 iff every cell passed. Each failure reproduces exactly via
 its printed (seed, config) cell.

@@ -14,7 +14,7 @@ Two reader loads:
     this can starve the writer unboundedly, which is the reference's
     documented semantics, not a bug).
 
-Writes bench/results/lock_stress_r3.json.
+Writes lock_stress.json (see --out).
 
 Usage: python lock_stress.py [--n 20000] [--dim 64] [--readers 4]
                              [--writes 10] [--deadline 30]
@@ -112,8 +112,7 @@ def main():
     p.add_argument("--readers", type=int, default=4)
     p.add_argument("--writes", type=int, default=10)
     p.add_argument("--deadline", type=float, default=30.0)
-    p.add_argument("--out", default=os.path.join(
-        os.path.dirname(__file__), "results", "lock_stress_r3.json"))
+    p.add_argument("--out", default="lock_stress.json")
     args = p.parse_args()
 
     rng = np.random.default_rng(7)
@@ -130,7 +129,7 @@ def main():
                     f"{args.writes} single-item upserts",
         "cells": cells,
     }
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
     print(f"wrote {args.out}")

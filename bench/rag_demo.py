@@ -4,8 +4,8 @@ Counterpart of the reference's text demos (bench/st_embedding.py,
 bench/local_embedding_index.py, bench/local_embedding_query.py,
 bench/hf_upserts.py, bench/hf_query.py) without their network/model
 downloads: embeds with the dependency-free HashingEmbedder by default, the
-on-TPU FlaxMeanPoolEncoder with --embedder flax, a real converted HF BERT
-checkpoint (MiniLM etc.) run on-TPU with --embedder bert --model-path DIR,
+on-device FlaxMeanPoolEncoder with --embedder flax, a real converted HF BERT
+checkpoint (MiniLM etc.) run on-device with --embedder bert --model-path DIR,
 or sentence-transformers with --embedder st when installed. The
 self-retrieval pass mirrors the reference's recall-style mismatch counting
 (bench/hf_query.py:38-52).
@@ -69,18 +69,18 @@ def main():
                    help="keep embeddings device-resident end to end: "
                         "encoder output feeds ingest_device (corpus) and "
                         "query_columnar (queries) with zero vector host "
-                        "traffic — the fully on-TPU RAG path")
+                        "traffic — the fully on-device RAG path")
     p.add_argument("--batch", type=int, default=64,
                    help="encoder batch size (chunks per forward pass)")
     p.add_argument("--platform", choices=["auto", "cpu"], default="auto",
-                   help="cpu: force the CPU backend (the TPU is single-"
-                        "claim in the dev harness; JAX_PLATFORMS env is "
-                        "captured too early to help)")
+                   help="cpu: force the CPU backend (set in the live "
+                        "jax config, which also works when jax was "
+                        "imported before the env var could apply)")
     p.add_argument("--model-path",
                    help="local HF checkpoint dir for --embedder bert (e.g. a "
                         "downloaded copy of sentence-transformers/"
                         "all-MiniLM-L6-v2); weights are converted and run "
-                        "on-TPU via models.bert_encoder")
+                        "on-device via models.bert_encoder")
     p.add_argument("--dim", type=int, default=384)
     p.add_argument("--query", default="what does the index do with questions")
     p.add_argument("--topk", type=int, default=3)
@@ -115,7 +115,7 @@ def main():
         emb = BertMeanPoolEncoder.from_pretrained(args.model_path)
         args.dim = emb.dim
     elif args.embedder == "bert-random":
-        # Checkpoint-free on-TPU BERT: deterministic random weights +
+        # Checkpoint-free on-device BERT: deterministic random weights +
         # corpus-built word vocab. Embeddings are reproducible and
         # discriminative enough for self-retrieval (each chunk must rank
         # itself first), which is what the reference's mismatch counter
@@ -135,7 +135,7 @@ def main():
     ids = [f"chunk{i}" for i in range(len(chunks))]
 
     if args.device_pipeline:
-        # Fully on-TPU path: chunk embeddings never visit the host. The
+        # Fully on-device path: chunk embeddings never visit the host. The
         # encoder's jitted forward writes straight to HBM; ingest_device
         # adopts the matrix; query embeddings go device->device into
         # query_columnar.

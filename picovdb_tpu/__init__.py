@@ -1,11 +1,11 @@
-"""picovdb_tpu — a TPU-native vector database.
+"""picovdb_tpu — a vector database whose corpus lives on an accelerator.
 
 Capability surface of wensheng/picovdb (reference: picovdb/__init__.py:1-7),
-rebuilt TPU-first: the L2-normalized float32 corpus lives HBM-resident
-(optionally row-sharded across a `jax.sharding.Mesh`), queries run as one
-fused masked-top-k program (XLA exact scan / Pallas fused kernel / shard_map
-multi-chip path), and the optional FAISS HNSW tier is replaced by exact
-brute-force at better-than-HNSW latency plus a TPU-friendly IVF tier.
+rebuilt in JAX: the L2-normalized corpus lives in device memory (optionally
+row-sharded across a `jax.sharding.Mesh`), queries run as one masked-top-k
+XLA program (exact scan / IVF probe / shard_map multi-device path), and the
+optional FAISS HNSW tier is replaced by exact brute force plus a
+device-resident IVF tier.
 """
 
 from .constants import K_ID, K_METRICS, K_VECTOR, Float  # noqa: F401

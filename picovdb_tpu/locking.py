@@ -14,8 +14,8 @@ because readers also hold the read lock through a device-mirror currency
 check (`engine._synced_read`). `RWLock(writer_priority=True)` (engine kwarg
 `writer_priority`, env `PICOVDB_WRITER_PRIORITY=1`) closes it: while a
 writer is waiting, *new* readers queue behind it; in-flight readers drain
-normally. Default stays off for exact reference parity. Measured starvation
-numbers: bench/lock_stress.py -> bench/results/lock_stress_r3.json.
+normally. Default stays off for exact reference parity. bench/lock_stress.py
+measures the starvation.
 """
 
 from __future__ import annotations

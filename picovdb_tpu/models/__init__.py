@@ -2,8 +2,8 @@
 
 The reference has no model layer — its bench scripts call
 sentence-transformers on CPU (reference: bench/st_embedding.py:13-32,
-bench/hf_upserts.py). Here embedders are a first-class, TPU-first layer:
-an embedder can run *on the same TPU* as the store, so query embeddings
+bench/hf_upserts.py). Here embedders are a first-class, device-resident layer:
+an embedder can run *on the same device* as the store, so query embeddings
 stay device-resident end-to-end (see PicoVectorDB.query_columnar, which
 accepts jax.Array inputs with zero host round trips).
 
@@ -11,10 +11,10 @@ Four tiers:
   * HashingEmbedder — deterministic, dependency-free text embedder
     (feature-hashed n-grams). Good for tests, demos and smoke benches.
   * BertMeanPoolEncoder — first-party jitted BERT encoder running real
-    HuggingFace checkpoints (MiniLM et al.) on the TPU via
+    HuggingFace checkpoints (MiniLM et al.) on the device via
     `convert_hf_state_dict`; torch-forward parity is test-asserted.
   * FlaxMeanPoolEncoder — a small JAX/flax transformer encoder with mean
-    pooling that jits onto the TPU; weights random by default or loadable.
+    pooling that jits onto the device; weights random by default or loadable.
   * TorchSentenceEmbedder — optional bridge to sentence-transformers /
     transformers (CPU torch), gated on availability like the reference's
     bench deps.

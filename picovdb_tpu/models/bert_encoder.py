@@ -1,11 +1,11 @@
-"""On-TPU BERT-family sentence encoder + HuggingFace weight converter.
+"""On-device BERT-family sentence encoder + HuggingFace weight converter.
 
 Real-model embedding tier: the reference's RAG benches embed with
 sentence-transformers MiniLM on CPU (reference: bench/st_embedding.py:13-32,
 bench/hf_query.py:22-37) and feed the vectors to the store. Here the same
 architecture — BERT encoder, masked mean pooling, L2 normalization (the
 all-MiniLM-* sentence-transformers recipe) — runs as one jitted JAX program
-on the TPU, so corpus and query embeddings are born device-resident and
+on the device, so corpus and query embeddings are born device-resident and
 feed `PicoVectorDB.query_columnar` with zero host round trips.
 
 `convert_hf_state_dict` maps a HuggingFace `BertModel` torch checkpoint
@@ -341,7 +341,7 @@ class BertMeanPoolEncoder:
     ):
         """Deterministic random-weight encoder with a corpus-built vocab.
 
-        The checkpoint-free tier: same architecture and jitted TPU forward
+        The checkpoint-free tier: same architecture and jitted device forward
         as the converted-weights path, reproducible across processes, with
         a `WordVocabTokenizer` fitted to `corpus_texts` when given. Useful
         for self-retrieval benchmarks and end-to-end pipeline validation
@@ -359,10 +359,10 @@ class BertMeanPoolEncoder:
     def from_pretrained(cls, path: str, **kw):
         """Load a local HF checkpoint directory (no network access).
 
-        The on-TPU counterpart of the reference's
+        The on-device counterpart of the reference's
         SentenceTransformer("all-MiniLM-L6-v2") (bench/st_embedding.py:13):
         point at a downloaded copy of the same repo and the converted
-        weights serve the same embeddings from the TPU.
+        weights serve the same embeddings from the device.
         """
         from transformers import AutoModel, AutoTokenizer
 

@@ -1,6 +1,6 @@
 """Small flax transformer encoder producing mean-pooled sentence embeddings.
 
-On-TPU embedding tier: the encoder jits onto the same device as the vector
+On-device embedding tier: the encoder jits onto the same device as the vector
 store, so `encoder.embed_device(...)` output feeds
 `PicoVectorDB.query_columnar` with zero host round trips — the serving
 pipeline the reference approximates with CPU sentence-transformers

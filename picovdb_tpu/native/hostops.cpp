@@ -3,7 +3,7 @@
  * The device returns (scores, slot ids); turning them into the reference's
  * dict-per-hit result contract (picovdb/pico_vdb.py:752-775) is a pure
  * Python loop costing ~3 us per hit on one core — the end-to-end throughput
- * ceiling once the TPU side is fast. This extension rebuilds that loop in
+ * ceiling once the device side is fast. This extension rebuilds that loop in
  * C++ against the CPython API (~10x): bounds/score checks, doc lookup,
  * dict copy, metrics insertion, early stop at top_k.
  *

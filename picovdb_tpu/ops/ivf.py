@@ -1,26 +1,26 @@
-"""IVF-flat ANN tier: device k-means + block-skipping fused scan.
+"""IVF-flat ANN tier: device k-means + hot-tile probe scan.
 
-TPU-native replacement for the reference's FAISS HNSW acceleration tier
-(picovdb/pico_vdb.py:171-212, 866-921) for corpora where even the fused
-exact scan's full HBM sweep is too slow. Design:
+Device replacement for the reference's FAISS HNSW acceleration tier
+(picovdb/pico_vdb.py:171-212, 866-921) for corpora where even the exact
+scan's full sweep of device memory is too slow. Design:
 
   * **Train**: spherical k-means runs on device (Lloyd iterations under
-    jit, cosine assignment on the MXU, segment-sum centroid updates).
+    jit, cosine assignment as one matrix product, segment-sum centroid
+    updates).
   * **Layout**: corpus rows are reordered cluster-contiguous into an IVF
-    mirror (`vectors` (cap_ivf, dim) padded to the scan block size, plus
-    `slots` mapping IVF rows back to engine slot ids).
+    mirror (`vectors` (cap_ivf, dim) padded to the `IVF_BN`-row tile size,
+    plus `slots` mapping IVF rows back to engine slot ids).
   * **Search**: queries score centroids, take the top `nprobe` clusters
     each, and the union of probed clusters over the batch becomes a *hot
-    tile list*. The fused scan then runs with its corpus BlockSpec index
-    map driven by a scalar-prefetched tile table: padding entries repeat
-    the previous hot tile, which Pallas's pipeline recognizes as an
-    unchanged block — cold tiles are never DMA'd from HBM. Per-row probe
-    masks keep correctness (a row only scores if its own cluster was
-    probed), and the exact rescore from the fused path applies unchanged.
+    tile list*. The probe gathers those tiles, masks rows whose cluster
+    was not probed, scores them in one dot and keeps the top candidates;
+    cold tiles are never read. An exact rescore and slot translation
+    follow.
 
 The union-over-batch semantics only ever *adds* candidates relative to
-per-query probing, so recall is >= classic IVF at equal nprobe; HBM traffic
-is proportional to the number of distinct probed clusters in the batch.
+per-query probing, so recall is >= classic IVF at equal nprobe; the bytes
+read are proportional to the number of distinct probed clusters in the
+batch.
 
 `ef_search`-style knobs map to nprobe (see `ef_to_nprobe`), preserving the
 reference's "higher ef = more accurate" contract (picovdb/pico_vdb.py:719-729).
@@ -28,6 +28,7 @@ reference's "higher ef = more accurate" contract (picovdb/pico_vdb.py:719-729).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import os
@@ -36,56 +37,42 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..constants import Float
-from ..utils import next_pow2, round_up, scatter_floor
-from .pallas_scan import (
-    DEFAULT_QT,
-    KEY_MIN,
-    SCORE_SENTINEL,
-    SEG,
-    _from_sortable,
-    _to_sortable,
+from ..utils import budget_block, next_pow2, round_up, scatter_floor
+from .quant import (
     colmax_abs,
     fold_queries_i8,
     quantize_cols_i8,
     quantize_cols_scaled_i8,
     rescore_exact,
+    unpack_i4,
 )
 
-# Scan block for the IVF mirror. Larger blocks amortize the ~2-3 us
-# per-grid-step cost of the dynamic-index pipeline (the dominant residual
-# at small nprobe unions) against coarser skipping granularity (a probed
-# cluster of ~sqrt(N)/2 rows spans ~size/IVF_BN + 1 tiles, so bigger tiles
-# DMA more cold rows). 1024 measured best at 2M x 1024 in round 2;
-# PICOVDB_IVF_BN overrides for tuning at other scales (layout-coupled:
-# takes effect at the next build).
+# Tile size of the IVF mirror: the unit of the hot-tile list. Larger tiles
+# mean fewer gather steps but coarser skipping (a probed cluster of
+# ~sqrt(N)/2 rows spans ~size/IVF_BN + 1 tiles, so bigger tiles read more
+# cold rows). Policy kept from the first platform; to calibrate on the
+# H100. PICOVDB_IVF_BN overrides (layout-coupled: takes effect at the next
+# build).
 IVF_BN = int(os.getenv("PICOVDB_IVF_BN", "1024") or 1024)
 
 
 # int8 postings selection noise is ~0.3 * max_col_scale absolute, which
 # shrinks as 1/sqrt(dim) for L2-normalized rows; below this dim the noise
-# rivals real score gaps on clustered data (measured: exact-probe top-1
-# misses at dim=16) and the storage-dtype sweep serves instead.
+# rivals real score gaps on clustered data (exact-probe top-1 misses at
+# dim=16) and the storage-dtype sweep serves instead.
 IVF_I8_MIN_DIM = 256
 
 
 def _ivf_i8_enabled(dim: int) -> bool:
-    """int8 postings mirror for the probe scan (PICOVDB_IVF_I8).
+    """Whether int8 postings may serve the probe scan (PICOVDB_IVF_I8).
 
-    The probe runs tiny query tiles (qt == Q for Q <= 256), so each hot
-    tile's cost is DMA-dominated — exactly the regime where the 1 B/element
-    column-scaled mirror wins (Q=1 exact ladder: int8 1.08 ms vs bf16
-    1.22 ms, bench/results/int8_ab_r3b.json), unlike the MXU-bound qt=256
-    batch sweep where int8 loses. Selection ranks raw int32 scores (scales
-    folded into the query) inside a widened guard band; ranking is
-    exact-rescored against the storage-dtype postings as always. Default:
-    on for dim >= IVF_I8_MIN_DIM (CPU-interpret parity asserted in
-    tests/test_ivf.py; hardware A/B in bench/results/ivf2m_r3b.json when
-    present); PICOVDB_IVF_I8=0 opts out (e.g. to save cap_ivf*dim bytes
-    of HBM), =1 forces it at any dim."""
+    Selection ranks raw int32 scores of the 1 B/element column-scaled
+    postings (scales folded into the query) inside a widened guard band;
+    ranking is exact-rescored against the storage-dtype rows as always.
+    Default: allowed for dim >= IVF_I8_MIN_DIM; PICOVDB_IVF_I8=0 opts out,
+    =1 forces it at any dim."""
     env = os.getenv("PICOVDB_IVF_I8", "auto").strip().lower()
     if env in ("auto", ""):
         return dim >= IVF_I8_MIN_DIM
@@ -101,15 +88,10 @@ def _ivf_guard(is_i8: bool, dim: int) -> int:
     The probe selects k+guard candidates, then exact-rescores; winners
     the low-precision selection drops below the band are unrecoverable.
     bf16/f32 postings: +4 (selection is near-exact). int8-family
-    selection (postings mirror / int8-only layout): **+22 at
-    dim >= IVF_I8_MIN_DIM** — measured at the 4M x 1024 int8-only
-    capacity ceiling, the +6 band sheds 2.3% of true top-10 to int8
-    selection noise (recall 0.9766, flat across nprobe) while +22
-    recovers recall@10 = 1.0000 AND runs faster end-to-end (Q=1 5.31x
-    vs 4.25x exact; Q=8 5.82x) because the probe width can drop 64 -> 4
-    once selection stops losing winners (bench/results/ivf4m_r3b.* vs
-    ivf4m_guard22_r3.*). Below IVF_I8_MIN_DIM (forced-int8 contexts)
-    the +6 band keeps the ladder kernel's unrolled path."""
+    selection (postings mirror / int8-only layout): +22 at
+    dim >= IVF_I8_MIN_DIM, where a +6 band shed ~2% of the true top-10 to
+    int8 selection noise on a clustered 4M x 1024 corpus; +6 below it.
+    Policy kept from the first platform; to calibrate on the H100."""
     env = os.getenv("PICOVDB_IVF_GUARD")
     if env:
         try:
@@ -124,15 +106,10 @@ def _ivf_guard(is_i8: bool, dim: int) -> int:
 def _ivf_i8_mirror(dim: int) -> bool:
     """Optional classic-layout int8 postings mirror — OPT-IN (PICOVDB_IVF_I8=1).
 
-    Measured on an honestly-clustered 2M x 1024 corpus (the post-fix
-    mixture, bench/results/ivf2m_r3c.*): int8 selection noise inside the
-    k+6 guard costs 1.4% recall@10 (0.9859 vs bf16 postings' 1.0000,
-    flat across nprobe — it is selection noise, not probe width) while
-    winning only ~8% latency at matched operating points (1.51 vs
-    1.64 ms Q=1) and spending cap_ivf*dim extra HBM bytes. The original
-    default-on call was calibrated on the pre-fix noise-swamped mixture,
-    where the batched-union recall artifact hid the tax. int8 STORAGE
-    and the int8-only capacity layout still use int8 postings out of
+    On a clustered 2M x 1024 corpus int8 selection noise inside the k+6
+    guard cost ~1.4% recall@10 next to bf16 postings, and the mirror
+    spends cap_ivf*dim extra device bytes, so it is off by default. int8
+    STORAGE and the int8-only layout still use int8 postings out of
     necessity (capability-gated by `_ivf_i8_enabled`)."""
     env = os.getenv("PICOVDB_IVF_I8", "auto")
     # only explicit truthy values opt in — 'off'/'no'/typos must not
@@ -167,8 +144,6 @@ def _gather_rows_dequant_i4(arr, scale, idx):
     (cap, dim//2) byte rows, unpack both nibble planes (element j in the
     LOW nibble of byte j, j+dim/2 in the HIGH — quantize_rows_i4's
     layout), and reconstruct as nibble * vscale[row]."""
-    from .pallas_scan import unpack_i4
-
     full = unpack_i4(jnp.take(arr, idx, axis=0)).astype(jnp.float32)
     return full * jnp.take(scale, idx)[:, None]
 
@@ -264,16 +239,14 @@ def ef_to_nprobe(ef: int, nlist: int) -> int:
 
 def should_build(n_active: int, dim: Optional[int] = None,
                  itemsize: float = 4.0) -> bool:
-    """auto-index policy: build the tier once the exact sweep is
-    HBM-bytes-bound enough that the probe's fixed overhead pays off.
+    """auto-index policy: build the tier once the exact sweep reads enough
+    bytes that the probe's fixed overhead pays off.
 
-    The exact sweep costs ~corpus_bytes / HBM_BW; the probe's fixed
-    preamble is ~1-2 ms. Measured crossover on clustered 1024-d data
-    (corrected methodology, bench/results/ivf*m_r3c.* + the 1M run in
-    the r3 fifth-session log): at 2 GiB (1M x 1024 f32 / 2M bf16) IVF
-    wins 1.4x at Q=1 and 3.4x at Q=8; at 0.4 GiB (100k f32, 0.65 ms
-    sweep) the preamble loses. Threshold: >= 2 GiB of scanned bytes.
-    Row-count fallback (old rule) when the caller can't say."""
+    The exact sweep costs ~corpus_bytes / memory bandwidth; the probe has
+    a fixed preamble (centroid scoring, hot-tile list). Threshold: >= 2 GiB
+    of scanned bytes (1M x 1024 f32 / 2M bf16), a policy kept from the
+    first platform; to calibrate on the H100. Row-count fallback when the
+    caller can't say."""
     if dim:
         return n_active * dim * itemsize >= 2 * 2**30
     return n_active >= 2_000_000
@@ -318,7 +291,7 @@ class IVFIndex:
         # the cluster-contiguous layout; [nlist] = overflow/pad region start,
         # [nlist+1] = cap_ivf. Lets the per-query row mask be built as a
         # segment-boundary scatter + cumsum instead of a (cap_ivf,)-sized
-        # table gather — measured 1.3 ms vs 14.8 ms at 2M rows on v5e.
+        # table gather.
         self.seg_starts = seg_starts
         self.nlist = nlist
         self.n_tiles = n_tiles
@@ -345,8 +318,8 @@ class IVFIndex:
         `update()`'s O(changed) maintenance: appended rows requantize
         against them under the same clip-fraction guard as the i8-only
         layout, and only a guard trip (drifted appends) pays this full
-        re-derive again (VERDICT r4 weak #3: the old path requantized the
-        whole mirror on EVERY dirty epoch). No-op in the int8-only layout
+        re-derive again (rather than requantizing the whole mirror on
+        every dirty epoch). No-op in the int8-only layout
         (no storage-dtype source; mutations clip-scatter or rebuild)."""
         if self.vectors is None:
             return
@@ -379,9 +352,9 @@ class IVFIndex:
         each way). `host_vectors` may then be None. Otherwise the active
         rows are uploaded once and reordered on device. The IVF mirror keeps
         `dev_vectors`'s dtype (or `storage_dtype`): bfloat16 storage halves
-        the mirror's HBM residency, the probe scan reads bf16 at 2x MXU
-        rate, and the exact rescore bounds recall loss (~0.994 at bf16, same
-        as the engine's bf16 exact path)."""
+        the mirror's device residency and the bytes the probe reads, and
+        the exact rescore bounds recall loss (~0.994 at bf16, same as the
+        engine's bf16 exact path)."""
         size = (host_vectors if host_vectors is not None
                 else dev_vectors).shape[0]
         dim = (dim if dim is not None
@@ -407,10 +380,9 @@ class IVFIndex:
         gather_dq = _gather_rows_dequant_i4 if packed_i4 \
             else _gather_rows_dequant
         if dev_vectors is not None:
-            # Gather straight from the engine's HBM mirror through act_rows
-            # everywhere: a contiguous active-row copy would double the
-            # corpus's HBM residency, which at 2M x 1024 is the whole slack
-            # on a 16 GB chip.
+            # Gather straight from the engine's device mirror through
+            # act_rows everywhere: a contiguous active-row copy would
+            # double the corpus's device residency.
             src, sel = dev_vectors, act_rows
         else:
             if storage_dtype in (None, "float32") or i8_only:
@@ -462,8 +434,8 @@ class IVFIndex:
         else:
             centroids = init
         # Chunked assignment: a single-shot argmax over (n, nlist) scores
-        # materializes n*nlist*4 bytes (22 GB at 2M x 2828 — OOM on v5e);
-        # per-chunk the score block stays ~1.5 GB.
+        # materializes n*nlist*4 bytes (22 GB at 2M x 2828); per chunk the
+        # score block stays ~1.5 GB.
         assign = np.empty(n_active, dtype=np.int64)
         a_chunk = 131_072
         for s in range(0, n_active, a_chunk):
@@ -487,10 +459,9 @@ class IVFIndex:
         i8_buf = i8_scales = None
         if i8_only:
             # int8-ONLY postings: never materialize a storage-dtype IVF
-            # mirror next to the corpus — at the single-chip HBM ceiling
-            # (4M x 1024 bf16: 8 GB corpus) the classic layout's extra
-            # ~corpus-sized mirror cannot fit, while corpus + 1 B/element
-            # postings does. Two chunked passes over the reorder: reduce
+            # mirror next to the corpus — near the device memory limit the
+            # classic layout's extra ~corpus-sized mirror cannot fit, while
+            # corpus + 1 B/element postings can. Two chunked passes over the reorder: reduce
             # the per-column abs-max, then quantize each gathered chunk
             # against the shared scales straight into the int8 buffer.
             # The exact rescore reads the ENGINE corpus by slot id at
@@ -653,9 +624,8 @@ class IVFIndex:
         # stores (utils.scatter_bucket) — by REPEATING the last entry
         # (duplicate indices carry identical values: idempotent), so every
         # small epoch reuses the ONE executable set warm_update_path
-        # pre-compiles at build time (the r4 8M chip epoch measured 35.7 s
-        # because each jit first-compiled at its own shape; see
-        # bench/incr_probe.py).
+        # pre-compiles at build time (otherwise each jit first-compiles
+        # at its own shape inside a serving epoch).
         mb = scatter_floor(int(store.shape[0]))
         if old_rows.size:
             self.active = _scatter_set(
@@ -728,10 +698,9 @@ class IVFIndex:
         """Pre-compile the incremental-update executables at this layout's
         shapes with IDENTITY writes on the live buffers (scatter back what
         is already there), so the first dirty epoch pays execution cost
-        only. The r4 8M x 1024 int4 chip artifact measured a 35.7 s first
-        epoch — entirely first-use XLA compiles of these scatters at
-        capacity shapes (bench/incr_probe.py attributes it compile by
-        compile; epoch 1+ ran in 65-136 ms). One compile set covers every
+        only: at capacity shapes the first-use XLA compiles of these
+        scatters take seconds, all inside the first epoch. One compile set
+        covers every
         epoch of up to `bucket` changed rows (update() pads each scatter
         to a power-of-two bucket); larger epochs compile one more set at
         their own bucket on first use.
@@ -916,76 +885,11 @@ class IVFIndex:
             if q_pad != num_q:
                 q_dev = jnp.pad(q_dev, ((0, q_pad - num_q), (0, 0)),
                                 mode="edge")
-        interpret = (
-            getattr(getattr(dev, "_device", None), "platform", None) != "tpu"
-            if dev is not None
-            else jax.devices()[0].platform != "tpu"
-        )
-        # Static hot-grid bound: the union over the (real) batch probes at
-        # most num_q*nprobe clusters (+nprobe for the pad queries, which all
-        # probe the same ones), each spanning ~n_tiles/nlist + 1 tiles of
-        # the reorder. Without this bound the grid covers every tile and
-        # thousands of predicated no-op steps dominate (measured 17 ms vs
-        # 6.5 ms exact at 2M x 1024, Q=1, nprobe=128). Sized from the
-        # padded batch and rounded up to 64-tile buckets so distinct batch
-        # sizes share the kernel specialization (g_tiles is part of the
-        # _make_ivf_search lru_cache key; each miss is a 1-40 s compile).
-        # Expected distinct clusters: draws overlap, so the union grows as
-        # nlist*(1-(1-nprobe/nlist)^Q), not Q*nprobe; expected distinct hot
-        # tiles then follows the same birthday bound over tile spans. The
-        # old linear estimate (1.25*Q*nprobe*span) saturated to the full
-        # grid from Q=8 up, burning ~2 ms of predicated no-op steps per
-        # dispatch at 2M rows. A 1.35x margin + 64-tile bucket keeps the
-        # truncation probability negligible (and truncation is safe: the
-        # sorted hot list sheds highest-id probed tiles, measured honestly
-        # by the recall sweep — overflow tiles sort first and are never
-        # shed).
-        p_cluster = min(1.0, nprobe / self.nlist)
-        uniq = self.nlist * (1.0 - (1.0 - p_cluster) ** q_pad) + 1
-        span = self.n_tiles / self.nlist + 1.0  # tiles per cluster (avg)
-        e_hot = self.n_tiles * (
-            1.0 - math.exp(-uniq * span / self.n_tiles)
-        )
-        g_tiles = min(
-            self.n_tiles,
-            round_up(int(1.35 * e_hot) + 16, 64),
-        )
-        # Kernel style: the selection-ladder kernel pays ~k_sel serial VPU
-        # passes per hot tile (fine at Q=1 where few tiles are hot), the
-        # segmax kernel pays `per_seg` max passes + a global top-k outside
-        # (wins once the hot-tile count grows with the batch). Routed by
-        # measured crossover (bench/results/ivf2m_r3.json);
-        # PICOVDB_IVF_STYLE ∈ {ladder, segmax} overrides.
-        #
-        # Segment-concentration guard: the IVF layout is cluster-contiguous,
-        # so a query's true top-k concentrate inside its probed clusters'
-        # few 128-row segments — the opposite of the exact tier's scattered
-        # insertion order. Segmax keeps only `per_seg` keys per segment; if
-        # a typical cluster spans too few segments to surface k_sel winners
-        # at depth 8, the ladder kernel serves instead (measured failure
-        # without this: recall 0.78 at 3k rows / 32 clusters, where one
-        # cluster fits inside a single segment and 6 of the top-10 were
-        # truncated). `per_seg` deepens adaptively up to 8 as clusters
-        # shrink relative to k_sel; each extra rank is one more VPU max
-        # pass per tile, cheap next to the dot.
+        g_tiles = hot_tile_bound(nprobe, self.nlist, self.n_tiles, q_pad)
         slot_rescore = self.vectors is None  # int8-only layout
         postings = self.vectors_i8c if slot_rescore else self.vectors
-        cap_rows = int(postings.shape[0])
-        # Resolve the guard-widened selection band FIRST: depth sizing
-        # and the style gate must feed the FULL band, or the per-segment
-        # extraction truncates exactly the extra guard ranks the int8
-        # k+22 policy exists to keep (review finding, fifth session:
-        # sizing from the old k+4 let segmax surface ~span*per_seg < 32
-        # candidates on int8 paths while the kernel selected k_sel=32).
         use_i8_sel = (self.vectors_i8c is not None) or slot_rescore
         k_sel = k + _ivf_guard(use_i8_sel, self.dim)
-        span_segs = max(1e-6, (cap_rows / max(1, self.nlist)) / SEG)
-        need = math.ceil(1.5 * k_sel / span_segs)
-        per_seg = max(4, min(8, need))
-        style = os.getenv("PICOVDB_IVF_STYLE", "") or (
-            "segmax" if num_q > 1 and k_sel <= 64 and need <= 8
-            else "ladder"
-        )
         if slot_rescore:
             if dev is None or getattr(dev, "vectors", None) is None:
                 raise RuntimeError(
@@ -994,7 +898,7 @@ class IVFIndex:
                 )
             rescore_v = dev.vectors
             rescore_scale = getattr(dev, "vstore_scale", None)
-            compute_dtype_name = None  # only the int8 kernel scans
+            compute_dtype_name = None  # only the int8 postings scan
             packed_i4 = getattr(dev, "storage_dtype", None) == "int4"
         else:
             rescore_v = self.vectors
@@ -1004,249 +908,146 @@ class IVFIndex:
                 else str(self.vectors.dtype)
             )
             packed_i4 = False
-        fn = _make_ivf_search(
-            k, nprobe, self.n_tiles, self.nlist,
-            compute_dtype_name,
-            interpret,
+        tile_step = budget_block(
             g_tiles,
-            style,
-            per_seg,
-            self.vectors_i8c is not None,
-            slot_rescore,
-            k_sel,
-            packed_i4,
+            hot_tile_bytes(q_pad, self.dim,
+                           1 if use_i8_sel else postings.dtype.itemsize),
+            temp_budget_of(dev),
         )
-        vals, slot_ids = fn(
-            q_dev,
-            self.centroids,
-            rescore_v,
-            self.slots,
-            self.seg_starts,
-            self.active,
-            self.cluster2tile,
-            self.vectors_i8c,
-            self.cscale,
-            rescore_scale,
+        fn = _make_ivf_search(
+            k, nprobe, self.nlist, compute_dtype_name, g_tiles,
+            self.vectors_i8c is not None, slot_rescore, k_sel, packed_i4,
+            tile_step,
         )
+        with dispatch_slot_of(dev):
+            vals, slot_ids = fn(
+                q_dev,
+                self.centroids,
+                rescore_v,
+                self.slots,
+                self.seg_starts,
+                self.active,
+                self.cluster2tile,
+                self.vectors_i8c,
+                self.cscale,
+                rescore_scale,
+            )
         return vals, slot_ids, num_q
 
 
-def _ivf_kernel(hot_ref, nhot_ref, q_ref, v_ref, m_ref, vals_ref, idx_ref,
-                *, k: int, bn: int, lane_bits: int, compute_dtype=None):
-    """Scan kernel body over remapped hot tiles.
+def hot_tile_bound(nprobe: int, nlist: int, n_tiles: int, q_pad: int) -> int:
+    """Static bound on the hot tiles one probed batch scans.
 
-    Identical selection to pallas_scan._scan_kernel, but the corpus block
-    for grid step b is tile `hot_ref[b]` (scalar-prefetched), steps past
-    `nhot_ref[0]` are no-ops (their BlockSpec repeats the last hot tile, so
-    the pipeline skips the DMA), and global ids use the remapped tile base.
+    The union over the (padded) batch probes at most q_pad*nprobe clusters,
+    but draws overlap, so the expected union is
+    nlist*(1-(1-nprobe/nlist)^Q); expected distinct hot tiles follow the
+    same birthday bound over the tiles each cluster spans. A 1.35x margin
+    plus 16, rounded up to 64-tile buckets (distinct batch sizes share one
+    compiled search), keeps truncation rare, and truncation is safe: the
+    sorted hot list sheds the highest-id probed tiles, never the overflow
+    tiles (see `_probe_preamble`).
     """
-    b = pl.program_id(1)
-
-    @pl.when(b == 0)
-    def _init():
-        vals_ref[...] = jnp.full(vals_ref.shape, SCORE_SENTINEL, dtype=jnp.float32)
-        idx_ref[...] = jnp.zeros(idx_ref.shape, dtype=jnp.int32)
-
-    @pl.when(b < nhot_ref[0])
-    def _compute():
-        from .pallas_scan import _small_merge, _to_sortable
-
-        q = q_ref[...]
-        v = v_ref[...]
-        if compute_dtype is not None:
-            q = q.astype(compute_dtype)
-            v = v.astype(compute_dtype)
-        scores = jax.lax.dot_general(
-            q,
-            v,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        mask = m_ref[...]
-        qt = scores.shape[0]
-        low_mask = jnp.int32((1 << lane_bits) - 1)
-        lane = jax.lax.broadcasted_iota(jnp.int32, scores.shape, 1)
-        bits = pltpu.bitcast(scores, jnp.int32)
-        keys = (_to_sortable(bits) & ~low_mask) | lane
-        keys = jnp.where(mask > 0, keys, jnp.int32(KEY_MIN))
-        col_k = jax.lax.broadcasted_iota(jnp.int32, (qt, k), 1)
-
-        def body(j, carry):
-            keys, tvals, tidx = carry
-            m = jnp.max(keys, axis=1, keepdims=True)
-            amx = m & low_mask
-            approx = pltpu.bitcast(_from_sortable(m & ~low_mask), jnp.float32)
-            approx = jnp.where(m == jnp.int32(KEY_MIN), SCORE_SENTINEL, approx)
-            here = col_k == j
-            tvals = jnp.where(here, approx, tvals)
-            tidx = jnp.where(here, amx, tidx)
-            keys = jnp.where(keys == m, jnp.int32(KEY_MIN), keys)
-            return keys, tvals, tidx
-
-        init = (
-            keys,
-            jnp.full((qt, k), SCORE_SENTINEL, jnp.float32),
-            jnp.zeros((qt, k), jnp.int32),
-        )
-        _, tile_vals, tile_idx = jax.lax.fori_loop(
-            0, k, body, init, unroll=(k if k <= 16 else 1)
-        )
-        tile_idx = tile_idx + hot_ref[b] * bn
-
-        vals, idx = _small_merge(
-            vals_ref[...], idx_ref[...], tile_vals, tile_idx, k
-        )
-        vals_ref[...] = vals
-        idx_ref[...] = idx
+    p_cluster = min(1.0, nprobe / nlist)
+    uniq = nlist * (1.0 - (1.0 - p_cluster) ** q_pad) + 1
+    span = n_tiles / nlist + 1.0  # tiles per cluster (avg)
+    e_hot = n_tiles * (1.0 - math.exp(-uniq * span / n_tiles))
+    return min(n_tiles, round_up(int(1.35 * e_hot) + 16, 64))
 
 
-def _ivf_kernel_i8c(hot_ref, nhot_ref, q_ref, v_ref, m_ref, vals_ref,
-                    idx_ref, *, k: int, bn: int, lane_bits: int):
-    """Column-scaled int8 variant of `_ivf_kernel`: ranks raw int32 MXU
-    scores (scales folded into the query upstream — see the i8c tier in
-    pallas_scan.py), so the per-tile work is the s8 dot, the lane pack and
-    the selection ladder; no convert, no rescale, no bitcast. The f32
-    carry of the running merge is exact: >= 7 cleared lane bits leave
-    < 24 significant bits for any |score| < 2^31."""
-    b = pl.program_id(1)
+def temp_budget_of(dev) -> Optional[int]:
+    """The store's per-dispatch temporary budget (DeviceIndex.temp_budget);
+    None (no bound) without a store, or with a stand-in that only holds
+    the corpus arrays."""
+    budget = getattr(dev, "temp_budget", None)
+    return budget() if budget is not None else None
 
-    @pl.when(b == 0)
-    def _init():
-        vals_ref[...] = jnp.full(vals_ref.shape, SCORE_SENTINEL, dtype=jnp.float32)
-        idx_ref[...] = jnp.zeros(idx_ref.shape, dtype=jnp.int32)
 
-    @pl.when(b < nhot_ref[0])
-    def _compute():
-        from .pallas_scan import _small_merge
+def dispatch_slot_of(dev):
+    """The store's dispatch slot (DeviceIndex.dispatch_slot); no slot
+    without a store, or with a stand-in that only holds the corpus
+    arrays."""
+    slot = getattr(dev, "dispatch_slot", None)
+    return slot() if slot is not None else contextlib.nullcontext()
 
-        s_i32 = jax.lax.dot_general(
-            q_ref[...],
-            v_ref[...],
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-        mask = m_ref[...]
-        qt = s_i32.shape[0]
-        low_mask = jnp.int32((1 << lane_bits) - 1)
-        lane = jax.lax.broadcasted_iota(jnp.int32, s_i32.shape, 1)
-        keys = (s_i32 & ~low_mask) | lane
-        keys = jnp.where(mask > 0, keys, jnp.int32(KEY_MIN))
-        col_k = jax.lax.broadcasted_iota(jnp.int32, (qt, k), 1)
 
-        def body(j, carry):
-            keys, tvals, tidx = carry
-            m = jnp.max(keys, axis=1, keepdims=True)
-            amx = m & low_mask
-            approx = (m & ~low_mask).astype(jnp.float32)
-            approx = jnp.where(m == jnp.int32(KEY_MIN), SCORE_SENTINEL, approx)
-            here = col_k == j
-            tvals = jnp.where(here, approx, tvals)
-            tidx = jnp.where(here, amx, tidx)
-            keys = jnp.where(keys == m, jnp.int32(KEY_MIN), keys)
-            return keys, tvals, tidx
-
-        init = (
-            keys,
-            jnp.full((qt, k), SCORE_SENTINEL, jnp.float32),
-            jnp.zeros((qt, k), jnp.int32),
-        )
-        _, tile_vals, tile_idx = jax.lax.fori_loop(
-            0, k, body, init, unroll=(k if k <= 16 else 1)
-        )
-        tile_idx = tile_idx + hot_ref[b] * bn
-
-        vals, idx = _small_merge(
-            vals_ref[...], idx_ref[...], tile_vals, tile_idx, k
-        )
-        vals_ref[...] = vals
-        idx_ref[...] = idx
+def hot_tile_bytes(num_q: int, dim: int, itemsize: int) -> int:
+    """Temporary device bytes per gathered hot tile: its postings rows and
+    their (Q, rows) scores, mask and selection copies."""
+    return IVF_BN * (dim * itemsize + 12 * num_q)
 
 
 def probe_scan_local(q, centroids, vectors, slots, seg_starts, active,
                      cluster2tile, *, k: int, k_sel: int, nprobe: int,
-                     nlist: int, g_tiles: Optional[int],
-                     interpret: bool, compute_dtype,
+                     nlist: int, g_tiles: Optional[int], compute_dtype,
                      vectors_i8=None, cscale=None,
                      rescore_by_slot: bool = False, rescore_scale=None,
-                     rescore_packed_i4: bool = False):
-    """Probe clusters -> hot-tile list -> block-skipping scan -> exact
+                     rescore_packed_i4: bool = False,
+                     tile_step: Optional[int] = None):
+    """Probe clusters -> hot-tile list -> gathered hot-tile scan -> exact
     rescore -> slot translation, over ONE device's local IVF arrays.
 
     `q` must already be L2-normalized. Traceable both under plain jit (the
-    single-device tier below) and inside a shard_map body (the per-shard
-    mesh tier, parallel/ivf_mesh.py): every op is local — no collectives.
+    single-device tier) and inside a shard_map body (the per-shard mesh
+    tier, parallel/ivf_mesh.py): every op is local — no collectives.
     Returns ((Q, k) f32 exact scores, (Q, k) int32 slot ids; -1 marks
     missing candidates).
 
-    `vectors_i8` + `cscale` (the column-scaled int8 postings mirror) route
-    the hot-tile sweep through the integer-ranked kernel at 1 B/element;
-    the exact rescore still reads the storage-dtype `vectors`.
+    The scan gathers the first `g_tiles` sorted hot tiles of the postings
+    (`IVF_BN` rows each), masks rows outside the probed clusters and steps
+    at or past the live hot count, scores them in one dot and keeps the
+    top `k_sel`. Cold tiles are never read. `tile_step` (sized from the
+    store's temporary budget, see `hot_tile_bytes`) walks the hot list that many tiles at a time with a
+    running top-k merge instead, bounding the gathered copy.
+
+    `vectors_i8` + `cscale` (the column-scaled int8 postings) score with an
+    s8 x s8 -> s32 dot, the column scales folded into the query; the exact
+    rescore still reads the storage-dtype `vectors`.
 
     `rescore_by_slot=True` (the int8-only layout): `vectors` is the
     ENGINE's slot-indexed corpus mirror, not an IVF-ordered mirror — the
     winners' IVF rows translate to slot ids first and the rescore gathers
     corpus rows by slot. Postings geometry then comes from `vectors_i8`.
     """
+    from .exact import _dot, blocked_topk
+
     num_q = q.shape[0]
-    cap_ivf = (vectors_i8 if rescore_by_slot else vectors).shape[0]
+    use_i8 = vectors_i8 is not None
+    postings = vectors_i8 if use_i8 else vectors
+    cap_ivf, dim = postings.shape
     n_tiles = cap_ivf // IVF_BN
-    bn = IVF_BN
-    qt = min(DEFAULT_QT, num_q)
-    lane_bits = max(1, int(bn - 1).bit_length())
-    k_run = min(k_sel, bn)
 
     row_mask, hot, n_hot, grid_b = _probe_preamble(
         q, centroids, active, seg_starts, cluster2tile,
         nprobe=nprobe, nlist=nlist, g_tiles=g_tiles,
-        cap_ivf=cap_ivf, n_tiles=n_tiles, bn=bn,
+        cap_ivf=cap_ivf, n_tiles=n_tiles, bn=IVF_BN,
     )
-
-    mask2d = row_mask.reshape(1, cap_ivf).astype(jnp.int32)
-    q_tiles = num_q // qt
-
-    use_i8 = vectors_i8 is not None
     if use_i8:
-        q_scan, v_scan = fold_queries_i8(q, cscale), vectors_i8
-        kernel = functools.partial(_ivf_kernel_i8c, k=k_run, bn=bn,
-                                   lane_bits=lane_bits)
+        q_scan = fold_queries_i8(q, cscale)
+    elif compute_dtype is not None:
+        q_scan = q.astype(compute_dtype)
     else:
-        q_scan, v_scan = q, vectors
-        kernel = functools.partial(_ivf_kernel, k=k_run, bn=bn,
-                                   lane_bits=lane_bits,
-                                   compute_dtype=compute_dtype)
+        q_scan = q
+    v_tiles = postings.reshape(n_tiles, IVF_BN, dim)
+    live_step = jnp.arange(grid_b, dtype=jnp.int32) < n_hot
+    hot_mask = (
+        jnp.take(row_mask.reshape(n_tiles, IVF_BN), hot, axis=0)
+        & live_step[:, None]
+    ).reshape(-1)
 
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(q_tiles, grid_b),
-        in_specs=[
-            pl.BlockSpec((qt, q.shape[1]), lambda i, b, hot, nh: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((bn, q.shape[1]),
-                         lambda i, b, hot, nh: (hot[b], 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, bn), lambda i, b, hot, nh: (0, hot[b]),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((qt, k_run), lambda i, b, hot, nh: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((qt, k_run), lambda i, b, hot, nh: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-    )
-    vals, idxs = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((num_q, k_run), jnp.float32),
-            jax.ShapeDtypeStruct((num_q, k_run), jnp.int32),
-        ],
-        # Off-TPU (no Mosaic) the kernel runs in plain pallas interpret
-        # mode — same code path, CPU-testable (matches DeviceIndex).
-        interpret=interpret,
-    )(hot, n_hot.reshape(1), q_scan, v_scan, mask2d)
+    def score_rows(start, n):
+        tiles = jax.lax.dynamic_slice_in_dim(hot, start // IVF_BN,
+                                             n // IVF_BN)
+        v = jnp.take(v_tiles, tiles, axis=0).reshape(n, dim)
+        if use_i8:
+            return _dot(q_scan, v, jnp.int32).astype(jnp.float32)
+        if compute_dtype is not None:
+            v = v.astype(compute_dtype)
+        return _dot(q_scan, v)
 
-    vals = jnp.where(vals <= SCORE_SENTINEL, -jnp.inf, vals)
+    block = None if tile_step is None else tile_step * IVF_BN
+    vals, pos = blocked_topk(score_rows, hot_mask, min(k_sel, grid_b * IVF_BN),
+                             block, num_q)
+    idxs = jnp.take(hot, pos // IVF_BN) * IVF_BN + pos % IVF_BN
     if rescore_by_slot:
         return _rescore_by_slot(q, vectors, slots, vals, idxs, k,
                                 corpus_scale=rescore_scale,
@@ -1263,19 +1064,18 @@ def _rescore_by_slot(q, corpus, slots, vals, idxs, k, corpus_scale=None,
                      packed_i4: bool = False):
     """Exact rescore for the int8-only layout: translate winner IVF rows
     to engine slot ids, gather the slot-indexed corpus rows, re-rank by
-    exact f32 scores. -inf/pad candidates stay -inf with slot -1.
-    `corpus_scale` dequantizes an int8 STORAGE corpus (per-row scales);
-    `packed_i4` additionally unpacks a packed-nibble int4 STORAGE corpus
-    (quantize_rows_i4's (cap, dim//2) layout) before the dot."""
+    exact f32 scores (HIGHEST: these are the returned scores). -inf/pad
+    candidates stay -inf with slot -1. `corpus_scale` dequantizes an int8
+    STORAGE corpus (per-row scales); `packed_i4` additionally unpacks a
+    packed-nibble int4 STORAGE corpus before the dot."""
     sl = jnp.take(slots, idxs, axis=0)  # (Q, k_run)
     safe = jnp.maximum(sl, 0)
     gathered = jnp.take(corpus, safe, axis=0)
     if packed_i4:
-        from .pallas_scan import unpack_i4
-
         gathered = unpack_i4(gathered)
     exact = jnp.einsum("qd,qkd->qk", q, gathered.astype(jnp.float32),
-                       preferred_element_type=jnp.float32)
+                       preferred_element_type=jnp.float32,
+                       precision=jax.lax.Precision.HIGHEST)
     if corpus_scale is not None:
         exact = exact * jnp.take(corpus_scale, safe)
     exact = jnp.where(jnp.isneginf(vals) | (sl < 0), -jnp.inf, exact)
@@ -1290,9 +1090,11 @@ def _probe_preamble(q, centroids, active, seg_starts, cluster2tile, *,
                     nprobe: int, nlist: int, g_tiles: Optional[int],
                     cap_ivf: int, n_tiles: int, bn: int):
     """Probe clusters and build the (row_mask, hot tile list, n_hot,
-    grid_b) quadruple shared by both IVF scan kernels (ladder + segmax)."""
-    # 1) probe clusters
-    cs = q @ centroids.T  # (Q, nlist_pad)
+    grid_b) quadruple the probe scan consumes."""
+    # 1) probe clusters (HIGHEST like every f32 scoring dot: the probe
+    # choice among near-equal centroids must not hang on TF32 rounding)
+    cs = jnp.matmul(q, centroids.T,
+                    precision=jax.lax.Precision.HIGHEST)  # (Q, nlist_pad)
     cs = jnp.where(
         jax.lax.broadcasted_iota(jnp.int32, cs.shape, 1) < nlist,
         cs,
@@ -1312,30 +1114,30 @@ def _probe_preamble(q, centroids, active, seg_starts, cluster2tile, *,
     # Row mask via segment boundaries: the layout is cluster-contiguous,
     # so per-row probe membership is piecewise-constant — scatter +/-1
     # at the 2*(nlist+1) segment edges and cumsum, instead of gathering
-    # a (cap_ivf,)-row table (the gather costs 14.8 ms at 2M rows on
-    # v5e; this costs 1.3 ms, bit-identical output).
+    # a (cap_ivf,)-row table.
     cm_main = cluster_mask[: nlist + 1]
     delta = jnp.zeros(cap_ivf + 1, jnp.float32)
     delta = delta.at[seg_starts[:-1]].add(cm_main)
     delta = delta.at[seg_starts[1:]].add(-cm_main)
     row_mask = (jnp.cumsum(delta)[:cap_ivf] > 0.5) & active
-    tile_hot = (cluster_mask @ cluster2tile) > 0  # (n_tiles,)
+    tile_hot = jnp.matmul(cluster_mask, cluster2tile,
+                          precision=jax.lax.Precision.HIGHEST) > 0
     n_hot = tile_hot.sum().astype(jnp.int32)
-    # Compacted hot-tile ids; tail repeats the last hot tile so padded
-    # grid steps keep an unchanged BlockSpec index (no DMA). Overflow-
-    # region tiles (incrementally appended rows, ids >= ov_tile0) sort
-    # FIRST (negative keys): the static grid bound below truncates the
-    # sorted list, and shedding probed-cluster tiles costs a little
-    # recall on old rows, while shedding overflow tiles would silently
-    # exclude exactly the most recently upserted vectors.
+    # Compacted hot-tile ids; the tail repeats the last hot tile (those
+    # steps are masked off by the caller). Overflow-region tiles
+    # (incrementally appended rows, ids >= ov_tile0) sort FIRST (negative
+    # keys): the static bound below truncates the sorted list, and
+    # shedding probed-cluster tiles costs a little recall on old rows,
+    # while shedding overflow tiles would silently exclude exactly the
+    # most recently upserted vectors.
     ov_tile0 = seg_starts[nlist] // jnp.int32(bn)
     iota_t = jax.lax.broadcasted_iota(jnp.int32, (n_tiles,), 0)
     sort_key = jnp.where(iota_t >= ov_tile0, iota_t - n_tiles, iota_t)
     tile_ids = jnp.where(tile_hot, sort_key, jnp.int32(n_tiles))
-    # Static grid bound: only the first `grid_b` sorted hot tiles are
-    # scanned. `g_tiles` (sized from num_q*nprobe by the caller) rarely
-    # truncates in practice; when it does, the highest-id non-overflow
-    # hot tiles are dropped and the recall sweep reflects it honestly.
+    # Static bound: only the first `grid_b` sorted hot tiles are
+    # scanned. `g_tiles` (see hot_tile_bound) rarely truncates in
+    # practice; when it does, the highest-id non-overflow hot tiles are
+    # dropped and the recall sweep reflects it honestly.
     grid_b = min(g_tiles, n_tiles) if g_tiles else n_tiles
     hot = jnp.sort(tile_ids)[:grid_b]
     hot = jnp.where(hot < 0, hot + n_tiles, hot)
@@ -1343,232 +1145,44 @@ def _probe_preamble(q, centroids, active, seg_starts, cluster2tile, *,
     last_hot = hot[jnp.maximum(n_hot - 1, 0)]
     hot = jnp.where(hot >= n_tiles, last_hot, hot)
     # n_hot == 0 (every probed cluster empty — possible with stale warm
-    # centroids) leaves last_hot == n_tiles, which would feed the corpus
-    # BlockSpec an out-of-bounds DMA; clamp unconditionally. The kernel's
-    # `b < n_hot` predicate already makes those steps no-ops, so the
-    # clamped tile is loaded but never scored.
+    # centroids) leaves last_hot == n_tiles: clamp so the gather stays in
+    # bounds (those steps are masked off).
     hot = jnp.minimum(hot, jnp.int32(n_tiles - 1))
     return row_mask, hot, n_hot, grid_b
 
 
-def _ivf_segmax_kernel(hot_ref, nhot_ref, q_ref, v_ref, m_ref, out_ref, *,
-                       bn: int, per_seg: int, compute_dtype=None):
-    """Segmax-style IVF tile scan: emit each 128-segment's top-`per_seg`
-    packed keys instead of running the k-rank selection ladder per tile.
-
-    The ladder kernel's per-step cost is ~k_sel serial (max + select) VPU
-    passes over the whole (qt, bn) score tile — at Q=8 over 2M rows that
-    compute co-dominates the probed sweep. Here each grid step costs the
-    dot plus `per_seg` max passes; the global top-k over the emitted
-    candidate slab and the exact rescore happen once, outside the kernel
-    (same structure as pallas_scan._segmax_kernel).
-
-    per_seg=4 (vs the exact tier's 2): the IVF reorder is
-    cluster-contiguous, so a query's true top-k concentrate in its probed
-    clusters' few segments — deeper per-segment extraction keeps the
-    truncation probability negligible for k<=16 while still replacing ~14
-    serial ladder ranks with 4 max passes.
-
-    Steps at-or-past `nhot_ref[0]` still write their block (it is this
-    step's only chance — every (i, b) block is distinct) but emit KEY_MIN,
-    marking the whole tile's candidates invalid.
-    """
-    b = pl.program_id(1)
-    q = q_ref[...]
-    v = v_ref[...]
-    if compute_dtype is not None:
-        q = q.astype(compute_dtype)
-        v = v.astype(compute_dtype)
-    elif v.dtype != q.dtype:
-        q = q.astype(v.dtype)
-    scores = jax.lax.dot_general(
-        q, v, dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # (QT, BN)
-    mask = m_ref[...]  # (1, BN)
-    qt = scores.shape[0]
-    ns = bn // SEG
-
-    bits = pltpu.bitcast(scores, jnp.int32)
-    keys = _to_sortable(bits).reshape(qt, ns, SEG)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (qt, ns, SEG), 2)
-    keys = (keys & ~jnp.int32(SEG - 1)) | lane
-    live = (mask.reshape(1, ns, SEG) > 0) & (b < nhot_ref[0])
-    keys = jnp.where(live, keys, jnp.int32(KEY_MIN))
-
-    tops = []
-    for _ in range(per_seg):
-        m = jnp.max(keys, axis=2)  # (QT, NS)
-        tops.append(m)
-        keys = jnp.where(keys == m[:, :, None], jnp.int32(KEY_MIN), keys)
-    out_ref[...] = jnp.concatenate(tops, axis=1).T  # (per_seg*NS, QT)
-
-
-def _ivf_segmax_kernel_i8c(hot_ref, nhot_ref, q_ref, v_ref, m_ref, out_ref,
-                           *, bn: int, per_seg: int):
-    """Column-scaled int8 variant of `_ivf_segmax_kernel`: per-segment
-    top-`per_seg` of raw int32 MXU scores (no convert/rescale/bitcast)."""
-    b = pl.program_id(1)
-    s_i32 = jax.lax.dot_general(
-        q_ref[...], v_ref[...],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )  # (QT, BN)
-    mask = m_ref[...]  # (1, BN)
-    qt = s_i32.shape[0]
-    ns = bn // SEG
-
-    keys = s_i32.reshape(qt, ns, SEG)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (qt, ns, SEG), 2)
-    keys = (keys & ~jnp.int32(SEG - 1)) | lane
-    live = (mask.reshape(1, ns, SEG) > 0) & (b < nhot_ref[0])
-    keys = jnp.where(live, keys, jnp.int32(KEY_MIN))
-
-    tops = []
-    for _ in range(per_seg):
-        m = jnp.max(keys, axis=2)  # (QT, NS)
-        tops.append(m)
-        keys = jnp.where(keys == m[:, :, None], jnp.int32(KEY_MIN), keys)
-    out_ref[...] = jnp.concatenate(tops, axis=1).T  # (per_seg*NS, QT)
-
-
-def probe_scan_segmax(q, centroids, vectors, slots, seg_starts, active,
-                      cluster2tile, *, k: int, k_sel: int, nprobe: int,
-                      nlist: int, g_tiles: Optional[int],
-                      interpret: bool, compute_dtype, per_seg: int = 4,
-                      vectors_i8=None, cscale=None,
-                      rescore_by_slot: bool = False, rescore_scale=None,
-                     rescore_packed_i4: bool = False):
-    """Probed IVF top-k via per-segment extraction (see
-    `_ivf_segmax_kernel`): probe -> hot tiles -> segmax sweep -> global
-    top-k over the candidate slab -> exact rescore -> slot translation.
-
-    Same contract as `probe_scan_local` (incl. `rescore_by_slot`);
-    preferable for mid-size batches (Q >= 8) where the ladder's per-tile
-    selection compute co-dominates.
-    """
-    num_q = q.shape[0]
-    cap_ivf = (vectors_i8 if rescore_by_slot else vectors).shape[0]
-    n_tiles = cap_ivf // IVF_BN
-    bn = IVF_BN
-    qt = min(DEFAULT_QT, num_q)
-    ns = bn // SEG
-
-    row_mask, hot, n_hot, grid_b = _probe_preamble(
-        q, centroids, active, seg_starts, cluster2tile,
-        nprobe=nprobe, nlist=nlist, g_tiles=g_tiles,
-        cap_ivf=cap_ivf, n_tiles=n_tiles, bn=bn,
-    )
-    mask2d = row_mask.reshape(1, cap_ivf).astype(jnp.int32)
-    q_tiles = num_q // qt
-
-    use_i8 = vectors_i8 is not None
-    if use_i8:
-        q_scan, v_scan = fold_queries_i8(q, cscale), vectors_i8
-        kernel = functools.partial(_ivf_segmax_kernel_i8c, bn=bn,
-                                   per_seg=per_seg)
-    else:
-        q_scan, v_scan = q, vectors
-        kernel = functools.partial(_ivf_segmax_kernel, bn=bn,
-                                   per_seg=per_seg,
-                                   compute_dtype=compute_dtype)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(q_tiles, grid_b),
-        in_specs=[
-            pl.BlockSpec((qt, q.shape[1]), lambda i, b, hot, nh: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((bn, q.shape[1]),
-                         lambda i, b, hot, nh: (hot[b], 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, bn), lambda i, b, hot, nh: (0, hot[b]),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((per_seg * ns, qt),
-                               lambda i, b, hot, nh: (b, i),
-                               memory_space=pltpu.VMEM),
-    )
-    keys = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            (grid_b * per_seg * ns, num_q), jnp.int32
-        ),
-        interpret=interpret,
-    )(hot, n_hot.reshape(1), q_scan, v_scan, mask2d)
-    keys = keys.T  # (Q, grid_b * per_seg * ns)
-
-    # Decode: column c belongs to grid step b = c // (per_seg*ns), segment
-    # (c % (per_seg*ns)) % ns of tile hot[b]; the lane is the key's low 7
-    # bits. Global top-k on the raw keys (monotonic in score), then decode
-    # only the winners — same trick as pallas_scan.make_segmax_topk.
-    k_run = min(k_sel, keys.shape[1])
-    tk, ti = jax.lax.top_k(keys, k_run)
-    step = ti // (per_seg * ns)
-    s = jax.lax.rem(ti, jnp.int32(per_seg * ns))
-    s = jax.lax.rem(s, jnp.int32(ns))
-    base_tile = jnp.take(hot, step)  # (Q, k_run) hot-tile remap
-    gidx = (base_tile * ns + s) * SEG + (tk & jnp.int32(SEG - 1))
-    empty = tk == jnp.int32(KEY_MIN)
-    gidx = jnp.where(empty, 0, gidx)
-    if rescore_by_slot:
-        marker = jnp.where(empty, -jnp.inf, 0.0)  # only -inf-ness matters
-        return _rescore_by_slot(q, vectors, slots, marker, gidx, k,
-                                corpus_scale=rescore_scale,
-                                packed_i4=rescore_packed_i4)
-    gathered = jnp.take(vectors, gidx, axis=0)
-    exact = jnp.einsum("qd,qkd->qk", q, gathered.astype(jnp.float32),
-                       preferred_element_type=jnp.float32)
-    exact = jnp.where(empty, -jnp.inf, exact)
-    order = jnp.argsort(-exact, axis=1)
-    vals = jnp.take_along_axis(exact, order, axis=1)[:, :k]
-    idxs = jnp.take_along_axis(gidx, order, axis=1)[:, :k].astype(jnp.int32)
-    slot_ids = jnp.take(slots, idxs, axis=0)
-    slot_ids = jnp.where(jnp.isneginf(vals), -1, slot_ids)
-    return vals, slot_ids
-
-
 @functools.lru_cache(maxsize=256)
-def _make_ivf_search(k: int, nprobe: int, n_tiles: int, nlist: int,
+def _make_ivf_search(k: int, nprobe: int, nlist: int,
                      compute_dtype_name: Optional[str] = None,
-                     interpret: bool = False,
                      g_tiles: Optional[int] = None,
-                     style: str = "ladder",
-                     per_seg: int = 4,
                      use_i8: bool = False,
                      slot_rescore: bool = False,
                      k_sel: Optional[int] = None,
-                     packed_i4: bool = False):
-    """Jitted single-device probed search (see `probe_scan_local` /
-    `probe_scan_segmax`).
+                     packed_i4: bool = False,
+                     tile_step: Optional[int] = None):
+    """Jitted single-device probed search (see `probe_scan_local`).
 
     `k_sel` (selection band incl. the guard, see `_ivf_guard`) is an
     explicit cache-key argument: the caller resolves the guard env/dim
-    policy BEFORE this lru-cached factory so env changes stay effective
-    (the r3 tie-margin lesson)."""
+    policy BEFORE this lru-cached factory so env changes stay effective."""
     if k_sel is None:
         k_sel = k + (6 if use_i8 else 4)
     compute_dtype = (
         jnp.dtype(compute_dtype_name) if compute_dtype_name else None
     )
-    if style == "segmax":
-        scan = functools.partial(probe_scan_segmax, per_seg=per_seg)
-    else:
-        scan = probe_scan_local
 
     def fn(q, centroids, vectors, slots, seg_starts, active, cluster2tile,
            vectors_i8=None, cscale=None, rescore_scale=None):
         from .exact import normalize_on_device
 
         q = normalize_on_device(q)
-        return scan(
+        return probe_scan_local(
             q, centroids, vectors, slots, seg_starts, active, cluster2tile,
             k=k, k_sel=k_sel, nprobe=nprobe, nlist=nlist, g_tiles=g_tiles,
-            interpret=interpret, compute_dtype=compute_dtype,
+            compute_dtype=compute_dtype,
             vectors_i8=vectors_i8, cscale=cscale,
             rescore_by_slot=slot_rescore, rescore_scale=rescore_scale,
-            rescore_packed_i4=packed_i4,
+            rescore_packed_i4=packed_i4, tile_step=tile_step,
         )
 
     return jax.jit(fn)

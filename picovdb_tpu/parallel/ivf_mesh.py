@@ -1,10 +1,10 @@
-"""Sharded IVF tier: shared centroids, per-shard postings, ICI merge.
+"""Sharded IVF tier: shared centroids, per-shard postings, cross-device merge.
 
 Replaces the reference's FAISS HNSW acceleration tier
 (picovdb/pico_vdb.py:171-212) at multi-chip scale — the round-2 gap where a
 mesh store with `index="ivf"` fell back to the sharded exact scan.
 
-Design (classic distributed IVF, re-laid-out for a TPU mesh):
+Design (classic distributed IVF, re-laid-out for a device mesh):
 
   * **One shared centroid table** (replicated, ~nlist x dim — tiny): k-means
     trains once on a sample of the whole corpus, so probing semantics are
@@ -19,11 +19,11 @@ Design (classic distributed IVF, re-laid-out for a TPU mesh):
   * **Search** runs under `shard_map`: queries are replicated; every shard
     probes the shared centroids (redundant (Q, nlist) matmul — far cheaper
     than a collective), builds its local hot-tile list, runs the same
-    block-skipping Pallas scan as the single-device tier
+    hot-tile probe scan as the single-device tier
     (`ops.ivf.probe_scan_local`), and emits a local top-k of (exact score,
     global slot) pairs. The k*nshards candidate slabs merge exactly like the
     sharded exact path (parallel/sharded_query.py): XLA lowers the final
-    top-k to an allgather over ICI + on-device selection.
+    top-k to an allgather across devices + on-device selection.
 
 Incremental maintenance mirrors the single-device tier's overflow-region
 design (ops/ivf.py::IVFIndex.update), re-laid-out per shard: each shard's
@@ -63,7 +63,7 @@ except ImportError:  # pragma: no cover - older JAX
     from jax.experimental.shard_map import shard_map as _shard_map
 
 from ..constants import Float
-from ..utils import next_pow2, round_up, scatter_floor
+from ..utils import budget_block, next_pow2, round_up, scatter_floor
 from ..ops.ivf import (
     IVF_BN,
     _assign,
@@ -72,9 +72,14 @@ from ..ops.ivf import (
     _ivf_i8_mirror,
     _kmeans,
     default_nlist,
+    dispatch_slot_of,
     ef_to_nprobe,
+    hot_tile_bound,
+    hot_tile_bytes,
     probe_scan_local,
+    temp_budget_of,
 )
+from ..ops.quant import quantize_cols_i8
 
 # Bounded FIFO: keys include id(mesh) and cached closures pin their mesh
 # plus compiled executables — unbounded growth leaks dead meshes in
@@ -101,10 +106,9 @@ def _quantize_shards_i8(vectors, mesh, shard_axis: str):
 
     Each shard derives its own (dim,) column scales — scales are folded
     into the query per shard inside the search body, and the exact f32
-    rescore runs before the ICI merge, so cross-shard score comparability
+    rescore runs before the cross-device merge, so cross-shard score comparability
     is unaffected. Returns (v_i8 P(shard, None), cscale (nshards, dim)
     P(shard, None))."""
-    from ..ops.pallas_scan import quantize_cols_i8
 
     def local(v):
         q, s = quantize_cols_i8(v)
@@ -312,12 +316,8 @@ class ShardedIVF:
         # incremental updates (cluster id = nlist, probed when occupied) —
         # 4% like the single-device tier (ops/ivf.py::build), but floored
         # at 64 rows, NOT a full IVF_BN tile: the tile rounding below
-        # already yields up to IVF_BN-1 rows of usable slack, and forcing
-        # an extra tile would grow every shard's probe grid — which the
-        # mosaic TPU interpreter cannot take (its core-emulation barriers
-        # deadlock when 8 shard_map bodies step multi-tile pallas grids
-        # concurrently on the CPU mesh — see tests/test_ivf_mesh.py note;
-        # real-TPU and XLA-fallback paths don't care).
+        # already yields up to IVF_BN-1 rows of usable slack, and an extra
+        # tile would grow every shard's probe scan.
         slack = max(64, int(0.04 * max(per, 1)))
         cap_shard = round_up(max(per, 1) + slack, IVF_BN)
         n_tiles = cap_shard // IVF_BN
@@ -368,7 +368,7 @@ class ShardedIVF:
             if i8_only:
                 # per-shard column-scaled int8 postings (selection only;
                 # the rescore reads the engine corpus) — same math as
-                # ops/pallas_scan.quantize_cols_i8, host-side
+                # ops/quant.quantize_cols_i8, host-side
                 rows_f = host_vectors[local_rows[order]].astype(
                     np.float32, copy=False
                 )
@@ -643,8 +643,8 @@ class ShardedIVF:
                 # classic-layout mirror maintenance, O(changed): appended
                 # rows requantize against the FROZEN per-shard column
                 # scales under the same clip guard as the i8-only layout
-                # (VERDICT r4 weak #3: this used to re-derive the whole
-                # per-shard mirror every dirty epoch). A guard trip —
+                # (rather than re-deriving the whole per-shard mirror
+                # every dirty epoch). A guard trip —
                 # appends outside the built dynamic range — pays one full
                 # re-derive with fresh scales; the mirror is
                 # selection-only either way.
@@ -835,40 +835,28 @@ class ShardedIVF:
                 q_dev = jnp.pad(q_dev, ((0, q_pad - num_q), (0, 0)),
                                 mode="edge")
             q_dev = jax.device_put(q_dev, NamedSharding(self.mesh, P()))
-        interpret = jax.devices()[0].platform != "tpu"
-        # Per-shard hot-grid bound: the same birthday-bound union the
-        # single-device tier uses (ops/ivf.py IVFIndex.search_async —
-        # probed clusters overlap across queries, so the union grows as
-        # nlist*(1-(1-p)^Q), and expected hot tiles follow the same bound
-        # over per-shard tile spans), NOT the old linear q*nprobe
-        # estimate, which saturated to the full per-shard grid from Q~8
-        # and burned predicated no-op steps on every shard per dispatch.
-        # Bucketed to 64 so batch sizes share kernel specializations;
-        # truncation sheds highest-id probed tiles only (overflow tiles
-        # sort first and are never shed).
-        import math
-
-        p_cluster = min(1.0, nprobe / self.nlist)
-        uniq = self.nlist * (1.0 - (1.0 - p_cluster) ** q_pad) + 1
-        span = self.n_tiles / self.nlist + 1.0
-        e_hot = self.n_tiles * (
-            1.0 - math.exp(-uniq * span / self.n_tiles)
-        )
-        g_tiles = min(
-            self.n_tiles,
-            round_up(int(1.35 * e_hot) + 16, 64),
-        )
+        # per-shard hot-grid bound and gather step, sized like the
+        # single-device tier (ops/ivf.py hot_tile_bound / hot_tile_bytes)
+        # from the store's per-device temporary budget
+        g_tiles = hot_tile_bound(nprobe, self.nlist, self.n_tiles, q_pad)
         use_i8 = self.vectors_i8c is not None
         i8_only = self.vectors is None
+        tile_step = budget_block(
+            g_tiles,
+            hot_tile_bytes(
+                q_pad, self.dim,
+                1 if (use_i8 or i8_only) else self.vectors.dtype.itemsize),
+            temp_budget_of(dev),
+        )
         if i8_only:
             corpus_scaled = dev.vstore_scale is not None
             corpus_i4 = getattr(dev, "storage_dtype", None) == "int4"
             fn = _make_sharded_ivf_search(
                 id(self.mesh), self.mesh, self.shard_axis, k, nprobe,
-                self.nlist, None, interpret, g_tiles, True,
+                self.nlist, None, g_tiles, True,
                 i8_only=True, corpus_scaled=corpus_scaled,
                 k_sel=k + _ivf_guard(True, self.dim),
-                corpus_i4=corpus_i4,
+                corpus_i4=corpus_i4, tile_step=tile_step,
             )
             args = (
                 q_dev, self.centroids, self.slots, self.seg_starts,
@@ -877,46 +865,43 @@ class ShardedIVF:
             )
             if corpus_scaled:
                 args = args + (dev.vstore_scale,)
-            vals, slot_ids = fn(*args)
+            with dispatch_slot_of(dev):
+                vals, slot_ids = fn(*args)
             return vals, slot_ids, num_q
         fn = _make_sharded_ivf_search(
             id(self.mesh), self.mesh, self.shard_axis, k, nprobe, self.nlist,
             None if self.vectors.dtype == jnp.float32
             else str(self.vectors.dtype),
-            interpret, g_tiles, use_i8,
-            k_sel=k + _ivf_guard(use_i8, self.dim),
+            g_tiles, use_i8,
+            k_sel=k + _ivf_guard(use_i8, self.dim), tile_step=tile_step,
         )
+        args = (q_dev, self.centroids, self.vectors, self.slots,
+                self.seg_starts, self.active, self.cluster2tile)
         if use_i8:
-            vals, slot_ids = fn(
-                q_dev, self.centroids, self.vectors, self.slots,
-                self.seg_starts, self.active, self.cluster2tile,
-                self.vectors_i8c, self.cscale,
-            )
-        else:
-            vals, slot_ids = fn(
-                q_dev, self.centroids, self.vectors, self.slots,
-                self.seg_starts, self.active, self.cluster2tile,
-            )
+            args = args + (self.vectors_i8c, self.cscale)
+        with dispatch_slot_of(dev):
+            vals, slot_ids = fn(*args)
         return vals, slot_ids, num_q
 
 
 def _make_sharded_ivf_search(mesh_key, mesh, shard_axis: str, k: int,
                              nprobe: int, nlist: int,
                              compute_dtype_name: Optional[str],
-                             interpret: bool, g_tiles: int,
+                             g_tiles: int,
                              use_i8: bool = False, i8_only: bool = False,
                              corpus_scaled: bool = False,
                              k_sel: Optional[int] = None,
-                             corpus_i4: bool = False):
+                             corpus_i4: bool = False,
+                             tile_step: Optional[int] = None):
     key = (mesh_key, mesh.shape_tuple, shard_axis, k, nprobe, nlist,
-           compute_dtype_name, interpret, g_tiles, use_i8, i8_only,
-           corpus_scaled, k_sel, corpus_i4)
+           compute_dtype_name, g_tiles, use_i8, i8_only,
+           corpus_scaled, k_sel, corpus_i4, tile_step)
     fn = _CACHE.get(key)
     if fn is None:
         fn = _build_sharded_ivf_search(
             mesh, shard_axis, k, nprobe, nlist, compute_dtype_name,
-            interpret, g_tiles, use_i8, i8_only, corpus_scaled, k_sel,
-            corpus_i4,
+            g_tiles, use_i8, i8_only, corpus_scaled, k_sel,
+            corpus_i4, tile_step,
         )
         while len(_CACHE) >= _CACHE_MAX:
             _CACHE.pop(next(iter(_CACHE)), None)
@@ -925,10 +910,10 @@ def _make_sharded_ivf_search(mesh_key, mesh, shard_axis: str, k: int,
 
 
 def _build_sharded_ivf_search(mesh, shard_axis, k, nprobe, nlist,
-                              compute_dtype_name, interpret, g_tiles,
+                              compute_dtype_name, g_tiles,
                               use_i8=False, i8_only=False,
                               corpus_scaled=False, k_sel=None,
-                              corpus_i4=False):
+                              corpus_i4=False, tile_step=None):
     # selection band incl. the guard — resolved by the CALLER via
     # _ivf_guard (env/dim policy before the cache; see ops/ivf.py)
     if k_sel is None:
@@ -942,8 +927,9 @@ def _build_sharded_ivf_search(mesh, shard_axis, k, nprobe, nlist,
         vals, slot_ids = probe_scan_local(
             q, cent, v, slots, segs[0], act, c2t[0],
             k=k, k_sel=k_sel, nprobe=nprobe, nlist=nlist, g_tiles=g_tiles,
-            interpret=interpret, compute_dtype=compute_dtype,
+            compute_dtype=compute_dtype,
             vectors_i8=v8, cscale=None if cs is None else cs[0],
+            tile_step=tile_step,
         )
         return vals, slot_ids  # slots are global already — no base offset
 
@@ -957,11 +943,11 @@ def _build_sharded_ivf_search(mesh, shard_axis, k, nprobe, nlist,
         vals, local_ids = probe_scan_local(
             q, cent, corpus, slots, segs[0], act, c2t[0],
             k=k, k_sel=k_sel, nprobe=nprobe, nlist=nlist, g_tiles=g_tiles,
-            interpret=interpret, compute_dtype=None,
+            compute_dtype=None,
             vectors_i8=v8, cscale=cs[0],
             rescore_by_slot=True,
             rescore_scale=maybe_scale[0] if corpus_scaled else None,
-            rescore_packed_i4=corpus_i4,
+            rescore_packed_i4=corpus_i4, tile_step=tile_step,
         )
         base = (
             jax.lax.axis_index(shard_axis) * corpus.shape[0]
@@ -989,9 +975,6 @@ def _build_sharded_ivf_search(mesh, shard_axis, k, nprobe, nlist,
         mesh=mesh,
         in_specs=in_specs,
         out_specs=(P(None, shard_axis), P(None, shard_axis)),
-        # pallas_call outputs carry no varying-mesh-axes metadata; the
-        # out_specs declare the sharding explicitly (see sharded_query.py)
-        check_vma=False,
     )
 
     def merged(q, *arrays):
@@ -999,7 +982,7 @@ def _build_sharded_ivf_search(mesh, shard_axis, k, nprobe, nlist,
 
         q = normalize_on_device(q)
         vals, sids = mapped(q, *arrays)
-        # (Q, nshards*k) candidate slabs -> final top-k over ICI
+        # (Q, nshards*k) candidate slabs -> final top-k across devices
         k_final = min(k, vals.shape[1])
         top_vals, order = jax.lax.top_k(vals, k_final)
         top_sids = jnp.take_along_axis(sids, order, axis=1)

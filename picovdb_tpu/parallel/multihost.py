@@ -1,15 +1,14 @@
-"""Multi-host (pod / multi-slice) bootstrap helpers.
+"""Multi-host bootstrap helpers.
 
 The reference has no distributed story at all (SURVEY.md §2: no NCCL/MPI/
 Gloo). Here the single-controller JAX runtime does the heavy lifting; these
 helpers wire the store into it:
 
   * `init_distributed()` — thin wrapper over `jax.distributed.initialize`
-    (coordinator discovery via env / TPU metadata), to be called once per
-    host process before building meshes.
-  * `pod_mesh()` — a (dp, shard) mesh over *all* pod devices, with the
-    corpus shard axis laid out over ICI-adjacent devices so the top-k merge
-    allgather rides ICI; dp spans slices (DCN) when multi-slice.
+    (coordinator address, process count and id passed in or read from the
+    environment), to be called once per host process before building
+    meshes.
+  * `pod_mesh()` — a (dp, shard) mesh over *all* devices of all processes.
   * `load_host_shard()` — each host reads only its own rows from a sharded
     checkpoint (persistence.save_vectors_sharded layout) and participates
     in a global `jax.make_array_from_process_local_data`.
@@ -61,12 +60,13 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 
 def pod_mesh(dp: int = 1, shard_axis: str = "shard", dp_axis: str = "dp"):
-    """(dp, shard) mesh over every device in the pod.
+    """(dp, shard) mesh over every device of every process.
 
-    `jax.devices()` in a multi-host program returns the global device list
-    ordered so that ICI neighbors are adjacent; keeping the shard axis
-    innermost therefore keeps the per-query top-k merge on ICI, with the
-    (rare) dp-axis traffic crossing DCN on multi-slice topologies.
+    The mesh follows the algorithm alone: the cards of one host are joined
+    all to all (NVLink), so no device order is closer than another. The
+    shard axis is innermost, so a shard group stays within consecutive
+    devices of `jax.devices()` (one host's cards before the next host's),
+    and only the rare dp-axis traffic crosses hosts.
     """
     import jax
     from jax.sharding import Mesh

@@ -1,9 +1,10 @@
-"""Row-sharded exact query with ICI top-k merge.
+"""Row-sharded exact query with a cross-device top-k merge.
 
-Each corpus shard computes a local masked top-k with the MXU; the per-shard
-(score, global-index) candidate slabs — k entries per shard — are laid out
-along a sharded axis and merged by a final small top-k, which XLA lowers to
-an allgather of (Q, k*shards) over ICI followed by on-device selection. This
+Each corpus shard computes a local masked top-k (ops/exact.py, f32 dots at
+HIGHEST precision); the per-shard (score, global-index) candidate slabs — k
+entries per shard — are laid out along a sharded axis and merged by a final
+small top-k, which XLA lowers to an allgather of (Q, k*shards) over the
+device interconnect followed by on-device selection. This
 replaces the reference's single-process result assembly
 (picovdb/pico_vdb.py:752-775) at multi-chip scale.
 
@@ -23,7 +24,7 @@ try:  # JAX >= 0.6 exposes shard_map at top level
 except ImportError:  # pragma: no cover - older JAX
     from jax.experimental.shard_map import shard_map as _shard_map
 
-from ..ops.exact import exact_topk
+from ..ops.exact import exact_topk, exact_topk_i4r, exact_topk_i8r
 
 # Bounded build cache. The key includes id(mesh), and the cached jitted
 # fns close over the mesh object — an UNbounded dict would therefore pin
@@ -37,9 +38,9 @@ _CACHE_MAX = 64
 
 
 def make_sharded_topk(mesh, shard_axis: str, k: int, compute_dtype_name=None,
-                      dp_axis: str = "dp", use_pallas: bool = False,
-                      normalize: bool = True, interpret: bool = False,
-                      storage_i8: bool = False, storage_i4: bool = False):
+                      dp_axis: str = "dp", normalize: bool = True,
+                      storage_i8: bool = False, storage_i4: bool = False,
+                      block=None):
     """Build a jitted sharded masked-top-k for a static k.
 
     Signature of the returned fn: (queries (Q, dim) [dp-sharded if dp>1],
@@ -49,38 +50,34 @@ def make_sharded_topk(mesh, shard_axis: str, k: int, compute_dtype_name=None,
     `storage_i8=True` serves an int8 STORAGE corpus (per-row-quantized
     rows + scales, see DeviceIndex): the returned fn takes an extra
     `vscale (cap,) f32` row-sharded argument after `vectors`, each shard
-    selects over its int8 rows on the MXU and rescores the winners
-    dequantized, so the merged scores carry storage precision exactly like
-    the single-device int8 lanes.
+    selects over its int8 rows and rescores the winners dequantized, so
+    the merged scores carry storage precision exactly like the
+    single-device int8 route.
 
-    `storage_i4=True` serves a packed int4 STORAGE corpus (two-plane
-    nibbles, (cap, dim//2) int8 bytes + per-row scales): same extra
-    `vscale` argument and the same select-then-dequantizing-rescore shape
-    as int8, with queries int8-quantized for the nibble kernel
-    (ops/pallas_scan.py int4 section). Merged scores carry 4-bit storage
-    precision; host-born stores restore exact ranking via the engine's
-    host-f64 rescore tier exactly as on a single device.
+    `storage_i4=True` serves a packed int4 STORAGE corpus (two nibbles per
+    byte, (cap, dim//2) int8 + per-row scales): same extra `vscale`
+    argument and the same select-then-dequantizing-rescore shape as int8.
+    Merged scores carry 4-bit storage precision; host-born stores restore
+    exact ranking via the engine's host-f64 rescore tier exactly as on a
+    single device.
 
-    `interpret=True` runs the Pallas kernel in interpret mode inside each
-    shard — the CPU-mesh test path for `use_pallas=True` (compiled Mosaic
-    is TPU-only).
+    `block` bounds each shard's temporaries like the single-device routes
+    (ops/exact.scan_block over the shard's rows).
     """
     key = (id(mesh), mesh.shape_tuple, shard_axis, k, compute_dtype_name,
-           dp_axis, use_pallas, normalize, interpret, storage_i8,
-           storage_i4)
+           dp_axis, normalize, storage_i8, storage_i4, block)
     fn = _CACHE.get(key)
     if fn is None:
         fn = _build(mesh, shard_axis, k, compute_dtype_name, dp_axis,
-                    use_pallas, normalize, interpret, storage_i8,
-                    storage_i4)
+                    normalize, storage_i8, storage_i4, block)
         while len(_CACHE) >= _CACHE_MAX:
             _CACHE.pop(next(iter(_CACHE)), None)
         _CACHE[key] = fn
     return fn
 
 
-def _build(mesh, shard_axis, k, compute_dtype_name, dp_axis, use_pallas,
-           normalize, interpret=False, storage_i8=False, storage_i4=False):
+def _build(mesh, shard_axis, k, compute_dtype_name, dp_axis, normalize,
+           storage_i8=False, storage_i4=False, block=None):
     compute_dtype = jnp.dtype(compute_dtype_name) if compute_dtype_name else None
     has_dp = dp_axis in mesh.shape and mesh.shape[dp_axis] > 1
     q_spec = P(dp_axis, None) if has_dp else P()
@@ -88,46 +85,17 @@ def _build(mesh, shard_axis, k, compute_dtype_name, dp_axis, use_pallas,
 
     def local(q, v, m):
         rows_local = v.shape[0]
-        k_local = min(k, rows_local)
-        if use_pallas:
-            from ..ops.pallas_scan import fused_topk, rescore_exact
-
-            # guard + exact rescore against local rows, mirroring
-            # make_fused_topk: packed-key quantization must not leak into
-            # the cross-shard merge.
-            k_sel = min(k_local + 4, rows_local)
-            vals, idx = fused_topk(q, v, m, k_sel, compute_dtype,
-                                   interpret=interpret)
-            vals, idx = rescore_exact(q, v, vals, idx)
-            vals, idx = vals[:, :k_local], idx[:, :k_local]
-        else:
-            vals, idx = exact_topk(q, v, m, k_local, compute_dtype)
+        vals, idx = exact_topk(q, v, m, min(k, rows_local), compute_dtype,
+                               block)
         base = (jax.lax.axis_index(shard_axis) * rows_local).astype(jnp.int32)
         return vals, idx + base
 
     def local_quant(q, vq, vs, m):
-        # shared int8/int4-STORAGE body: int8-quantized queries select over
-        # the quantized (for int4: packed-nibble) rows with a +4 guard,
-        # winners dequant-rescored before the slice — one place for the
-        # guard width and global-base arithmetic.
-        i4 = storage_i4
+        # int8/int4 STORAGE body: selection over the quantized rows with a
+        # +4 guard, winners dequant-rescored before the slice
         rows_local = vq.shape[0]
-        k_local = min(k, rows_local)
-        if use_pallas:
-            from ..ops import pallas_scan as ps
-
-            q_i8, _ = ps.quantize_rows_i8(q)
-            k_sel = min(k_local + 4, rows_local)
-            select = ps.fused_topk_i4 if i4 else ps.fused_topk_i8
-            rescore = ps.rescore_exact_i4r if i4 else ps.rescore_exact_i8r
-            vals, idx = select(q_i8, vq, vs, m, k_sel, interpret=interpret)
-            vals, idx = rescore(q, vq, vs, vals, idx)
-            vals, idx = vals[:, :k_local], idx[:, :k_local]
-        else:
-            from ..ops.exact import exact_topk_i4r, exact_topk_i8r
-
-            exact = exact_topk_i4r if i4 else exact_topk_i8r
-            vals, idx = exact(q, vq, vs, m, k_local)
+        exact = exact_topk_i4r if storage_i4 else exact_topk_i8r
+        vals, idx = exact(q, vq, vs, m, min(k, rows_local), block=block)
         base = (jax.lax.axis_index(shard_axis) * rows_local).astype(jnp.int32)
         return vals, idx + base
 
@@ -143,10 +111,6 @@ def _build(mesh, shard_axis, k, compute_dtype_name, dp_axis, use_pallas,
         mesh=mesh,
         in_specs=in_specs,
         out_specs=(P(out_q, shard_axis), P(out_q, shard_axis)),
-        # pallas_call outputs carry no varying-mesh-axes metadata yet; the
-        # out_specs above declare the sharding explicitly, so the check is
-        # safe to skip on the kernel path.
-        check_vma=not use_pallas,
     )
 
     def merged(q, *arrays):

@@ -242,7 +242,7 @@ def save_quantized_atomic(
     corpora up to 25M x 1024 on one chip) outgrew the reference's f32
     checkpoint (picovdb/pico_vdb.py:330-393): saving an 8M x 1024 int4
     store through `_ensure_host_vectors` would materialize ~32.8 GB of
-    host f32 (VERDICT r4 #2). This writes the packed storage plane + the
+    host f32. This writes the packed storage plane + the
     per-row scales, streamed chunk by chunk from `chunk_iter` (yields
     host (packed_rows, scales) pairs) into disk-backed memmaps — peak
     host RSS is one chunk + the page cache, never the corpus.

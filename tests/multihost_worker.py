@@ -60,7 +60,7 @@ def run_i4(mesh, full, qn, q_rep):
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from picovdb_tpu.ops.pallas_scan import quantize_rows_i4, unpack_i4
+    from picovdb_tpu.ops.quant import quantize_rows_i4, unpack_i4
     from picovdb_tpu.parallel.sharded_query import make_sharded_topk
 
     v4, scales = quantize_rows_i4(jnp.asarray(full))

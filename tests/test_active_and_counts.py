@@ -101,7 +101,6 @@ def test_stats_fields(db_path, rng):
     assert s["memmap"] is False
     assert f"{db_path.split('/')[-1]}.vecs.npy" in " ".join(s["file_sizes"].keys())
     assert s["index_kind"] in ("auto", "exact", "ivf")
-    assert set(s["mirrors"]) == {"bf16", "int8_rows", "int8_cols"}
     assert s["ann_postings"] in (
         None, "storage", "storage+int8", "int8-only"
     )

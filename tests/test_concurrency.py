@@ -296,20 +296,19 @@ def test_filtered_queries_under_concurrent_writes(db_path, rng):
 
 
 def test_segmax_retry_uses_dispatch_snapshot(db_path, rng, monkeypatch):
-    """A writer that full-reuploads the mirror between a segmax dispatch and
-    its underfill retry must not leak into the retry: results must match the
-    corpus captured at dispatch time (round-2 review item 6).
+    """A writer that full-reuploads the mirror between a dispatch and its
+    post-lock exact re-serve must not leak into the re-serve: results must
+    match the corpus captured at dispatch time (round-2 review item 6).
 
-    The mutation is injected at the exact race window by wrapping
-    engine._start_host_copies (runs after the read lock is released, before
-    assembly); the underfill is forced by poisoning one returned score.
+    The re-serve is the IVF tier's all-empty-probe fallback (forced here
+    by poisoning every returned score); the mutation is injected at the
+    exact race window by wrapping engine._start_host_copies (runs after
+    the read lock is released, before assembly).
     """
     import picovdb_tpu.engine as eng
 
     dim, n = 16, 512
-    db = PicoVectorDB(embedding_dim=dim, storage_file=db_path,
-                      scan_mode="mixed")
-    db._dev.SEGMAX_MIN_CAP = 256  # segmax normally needs a 32k corpus
+    db = PicoVectorDB(embedding_dim=dim, storage_file=db_path, index="ivf")
     old_vecs = rng.normal(size=(n, dim)).astype(np.float32)
     ids = [f"s{i}" for i in range(n)]
     db.upsert_columnar(old_vecs.copy(), ids=ids)
@@ -321,20 +320,15 @@ def test_segmax_retry_uses_dispatch_snapshot(db_path, rng, monkeypatch):
     oracle = np.argsort(-(nq @ nv.T), axis=1)[:, :4]
 
     dispatched = {}
-    orig_async = db._dev.query_async
+    orig_dispatch = db._ivf_chunk_dispatch
 
-    def poison_async(qnorm, k, filter_mask=None, force_exact=False,
-                     mask_key=None):
-        vals, idxs, num_q, ke = orig_async(
-            qnorm, k, filter_mask, force_exact=force_exact, mask_key=mask_key
-        )
-        if not force_exact and db._dev.last_strategy == "segmax_mixed":
-            vals = np.asarray(vals).copy()
-            vals[0, -1] = -np.inf  # fake an underfill -> retry path
-            dispatched["poisoned"] = True
-        return vals, idxs, num_q, ke
+    def poison_dispatch(chunk, k_eff, ef, pack):
+        vd, xd, nq_, k_ = orig_dispatch(chunk, k_eff, ef, False)
+        dispatched["poisoned"] = True
+        return (np.full(np.asarray(vd).shape, -np.inf, np.float32),
+                xd, nq_, k_)
 
-    monkeypatch.setattr(db._dev, "query_async", poison_async)
+    monkeypatch.setattr(db, "_ivf_chunk_dispatch", poison_dispatch)
 
     orig_copies = eng._start_host_copies
 
@@ -477,63 +471,60 @@ def test_ivf_batched_lane_under_concurrent_writes(db_path, rng):
     lane captures docs_ref and device handles inside the read lock, so
     every hit returned mid-churn must be internally consistent (a real
     id whose finite score came from SOME consistent snapshot)."""
-    import jax.experimental.pallas.tpu as pltpu
-
     dim = 24
-    with pltpu.force_tpu_interpret_mode():
-        db = PicoVectorDB(embedding_dim=dim, storage_file=db_path,
-                          index="ivf", ivf_nlist=8)
-        items, vecs = make_items(rng, 300, dim)
-        db.upsert(items)
-        db.query(vecs[0], top_k=1)  # build the tier
+    db = PicoVectorDB(embedding_dim=dim, storage_file=db_path,
+                      index="ivf", ivf_nlist=8)
+    items, vecs = make_items(rng, 300, dim)
+    db.upsert(items)
+    db.query(vecs[0], top_k=1)  # build the tier
 
-        stop = threading.Event()
-        errors = []
+    stop = threading.Event()
+    errors = []
 
-        def writer():
-            i = 0
-            while not stop.is_set():
-                try:
-                    if i % 3 == 0:
-                        db.upsert(
-                            [{K_ID: f"id{i % 300}",
-                              K_VECTOR: rng.normal(size=dim).astype(
-                                  np.float32)}]
-                        )
-                    else:
-                        db.delete([f"id{i % 300}"])
-                    i += 1
-                except Exception as e:  # pragma: no cover
-                    errors.append(e)
-                    return
-
-        def reader():
-            while not stop.is_set():
-                try:
-                    res = db.query_batched(
-                        np.stack([vecs[3], vecs[7]]), top_k=5,
-                        ef_search=1000,
+    def writer():
+        i = 0
+        while not stop.is_set():
+            try:
+                if i % 3 == 0:
+                    db.upsert(
+                        [{K_ID: f"id{i % 300}",
+                          K_VECTOR: rng.normal(size=dim).astype(
+                              np.float32)}]
                     )
-                    for row in res:
-                        for r in row:
-                            assert isinstance(r[K_ID], str)
-                            assert np.isfinite(r["_metrics_"])
-                except Exception as e:  # pragma: no cover
-                    errors.append(e)
-                    return
+                else:
+                    db.delete([f"id{i % 300}"])
+                i += 1
+            except Exception as e:  # pragma: no cover
+                errors.append(e)
+                return
 
-        tw = threading.Thread(target=writer)
-        readers = [threading.Thread(target=reader) for _ in range(2)]
-        tw.start()
-        for t in readers:
-            t.start()
-        time.sleep(1.5)
-        stop.set()
-        tw.join(timeout=20)
-        for t in readers:
-            t.join(timeout=20)
-        assert not errors, errors
-        res = db.query_batched(np.stack([vecs[4]]), top_k=3,
-                               ef_search=1000)
-        assert res and res[0]
-        assert db._last_topk_strategy.startswith("ivf")
+    def reader():
+        while not stop.is_set():
+            try:
+                res = db.query_batched(
+                    np.stack([vecs[3], vecs[7]]), top_k=5,
+                    ef_search=1000,
+                )
+                for row in res:
+                    for r in row:
+                        assert isinstance(r[K_ID], str)
+                        assert np.isfinite(r["_metrics_"])
+            except Exception as e:  # pragma: no cover
+                errors.append(e)
+                return
+
+    tw = threading.Thread(target=writer)
+    readers = [threading.Thread(target=reader) for _ in range(2)]
+    tw.start()
+    for t in readers:
+        t.start()
+    time.sleep(1.5)
+    stop.set()
+    tw.join(timeout=20)
+    for t in readers:
+        t.join(timeout=20)
+    assert not errors, errors
+    res = db.query_batched(np.stack([vecs[4]]), top_k=3,
+                           ef_search=1000)
+    assert res and res[0]
+    assert db._last_topk_strategy.startswith("ivf")

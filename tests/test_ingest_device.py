@@ -252,7 +252,7 @@ def test_ingest_host_shadow_store_mutates_like_host_born(db_path):
 def test_ingest_host_shadow_rejects_prequantized(db_path):
     """Pre-quantized ingest never materializes f32 rows, so asking for a
     shadow is a contract error, not a silent downgrade."""
-    from picovdb_tpu.ops.pallas_scan import quantize_rows_i8
+    from picovdb_tpu.ops.quant import quantize_rows_i8
 
     n, dim = 16, 16
     data = _mk(n, dim)

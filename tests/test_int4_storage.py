@@ -1,9 +1,8 @@
 """storage_dtype="int4": packed-nibble corpus tier (0.5 B/element).
 
-Halves int8 storage again (~25M x 1024 rows on one 16 GB chip). Two-plane
-packing: element j < dim/2 in the low nibble of byte j, j + dim/2 in the
-high nibble, so the TPU kernel unpacks with two vector ops and runs two
-half-width int8 MXU matmuls (ops/pallas_scan.py int4 section). The tier
+Halves int8 storage again. Two-plane packing: element j < dim/2 in the low
+nibble of byte j, j + dim/2 in the high nibble, so a row block unpacks with
+two vector ops before the int8 matmul (ops/quant.py int4 layout). The tier
 targets HOST-BORN stores: device-side ranking carries ~18x int8's
 quantization noise, and the engine's host-f64 rescore (rescore="auto",
 tests/test_rescore.py) restores exact ranking against the authoritative
@@ -39,7 +38,7 @@ def _tie_aware_recall(db, data, q, k=10):
 def test_pack_roundtrip_and_quantization_bound(rng):
     import jax.numpy as jnp
 
-    from picovdb_tpu.ops.pallas_scan import quantize_rows_i4, unpack_i4
+    from picovdb_tpu.ops.quant import quantize_rows_i4, unpack_i4
 
     V = _corpus(rng, n=512)
     v4, vs = quantize_rows_i4(jnp.asarray(V))
@@ -101,29 +100,10 @@ def test_host_rescore_restores_exact_recall(db_path, rng):
     assert r_host == 1.0
 
 
-def test_pallas_ladder_matches_xla_route(db_path, rng):
-    V = _corpus(rng, n=8192, dim=256)
-    q = V[rng.integers(0, len(V), 8)]
-    lad = PicoVectorDB(embedding_dim=256, storage_file=db_path + "_p",
-                       storage_dtype="int4", use_pallas=True,
-                       rescore="device")
-    lad.upsert([{K_ID: str(i), K_VECTOR: V[i]} for i in range(len(V))])
-    got_p = lad.query(q, top_k=10)
-    assert lad._last_topk_strategy == "i4stor_fused"
-    xla = PicoVectorDB(embedding_dim=256, storage_file=db_path + "_x",
-                       storage_dtype="int4", rescore="device")
-    xla.upsert([{K_ID: str(i), K_VECTOR: V[i]} for i in range(len(V))])
-    got_x = xla.query(q, top_k=10)
-    assert xla._last_topk_strategy == "i4stor_xla"
-    for a, b in zip(got_p, got_x):
-        assert [h[K_ID] for h in a] == [h[K_ID] for h in b]
-
-
 def test_wide_topk_falls_back(db_path, rng):
     V = _corpus(rng, n=2048)
     db = PicoVectorDB(embedding_dim=DIM, storage_file=db_path,
-                      storage_dtype="int4", use_pallas=True,
-                      rescore="device")
+                      storage_dtype="int4", rescore="device")
     db.upsert([{K_ID: str(i), K_VECTOR: V[i]} for i in range(len(V))])
     hits = db.query(V[5], top_k=600)
     assert len(hits) == 600 and hits[0][K_ID] == "5"
@@ -148,12 +128,12 @@ def test_device_born_ingest(db_path, rng):
 
 def test_device_born_ingest_prepacked(db_path, rng):
     """ingest_device with pre-quantized PACKED (n, dim//2) input + scales:
-    the path bench/exact25m_i4.py uses to build 25M-row corpora chunk-wise
-    on device without any (n, dim) f32 array ever existing."""
+    the path that builds capacity-size corpora chunk-wise on device
+    without any (n, dim) f32 array ever existing."""
     import jax
     import jax.numpy as jnp
 
-    from picovdb_tpu.ops.pallas_scan import quantize_rows_i4
+    from picovdb_tpu.ops.quant import quantize_rows_i4
 
     n = 512
     V = _corpus(rng, n=n)
@@ -201,11 +181,11 @@ def test_int4_rejects_odd_dim(db_path):
                      storage_dtype="int4")
 
 
-@pytest.mark.parametrize("scan_mode", ["auto", "fused"])
+@pytest.mark.parametrize("scan_mode", ["auto", "xla"])
 def test_int4_storage_mesh(db_path, rng, scan_mode):
     """int4 storage over a device mesh: packed (cap, dim//2) rows + per-row
     scales shard together; per-shard nibble-kernel selection + dequant
-    rescore merges over the ICI top-k (XLA and Pallas-interpret lanes).
+    rescore merges over the cross-device top-k.
     Extends the one-chip capacity ladder (f32 3M -> bf16 4M -> int8 12.58M
     -> int4 25.17M) onto the mesh: ~25M rows/chip x shards."""
     from picovdb_tpu.parallel import make_mesh
@@ -301,7 +281,7 @@ def test_int4_ivf_serves_probed(db_path, rng, monkeypatch):
 def test_int4_mesh_ivf_serves_probed(db_path, rng, monkeypatch):
     """int4 + ivf over the 8-device mesh: per-shard int8 postings select,
     the shard-local rescore unpacks each shard's slice of the PACKED int4
-    corpus, and the ICI merge returns global slots."""
+    corpus, and the cross-device merge returns global slots."""
     from picovdb_tpu.parallel import make_mesh
 
     monkeypatch.setenv("PICOVDB_IVF_I8", "1")
@@ -349,4 +329,4 @@ def test_serial_loop_routes_int4(db_path, rng):
     vals, idxs = db.query_serial_loop(V[:4], top_k=3)
     assert vals.shape == (4, 3) and idxs.shape == (4, 3)
     assert (idxs[:, 0] == np.arange(4)).all()
-    assert db._dev.last_strategy in ("i4stor_xla_loop", "i4stor_fused_loop")
+    assert db._dev.last_strategy == "i4stor_xla_loop"

@@ -12,7 +12,6 @@ import numpy as np
 import pytest
 
 from picovdb_tpu import PicoVectorDB, K_ID, K_METRICS, K_VECTOR
-from picovdb_tpu.device import DeviceIndex
 from picovdb_tpu.utils import normalize_batch
 
 DIM = 128
@@ -69,20 +68,16 @@ def test_int8_storage_end_to_end(db_path, rng):
 
 
 def test_int8_storage_routing_and_recall(db_path, rng):
-    n, k = DeviceIndex.SEGMAX_MIN_CAP, 8
+    n, k = 32_768, 8
     V = rng.normal(size=(n, DIM)).astype(np.float32)
     db = PicoVectorDB(embedding_dim=DIM, storage_file=db_path,
                       storage_dtype="int8")
     db.upsert_columnar(V, ids=[str(i) for i in range(n)], copy=False)
 
     db.query(V[3], top_k=3)
-    assert db._last_topk_strategy in (
-        "i8stor_fused_smallq", "i8stor_xla"  # xla after a crowding retry
-    )
+    assert db._last_topk_strategy == "i8stor_xla"
     out = db.query(V[:64], top_k=k)
-    assert db._last_topk_strategy.startswith(
-        ("segmax_i8stor", "i8stor_xla")
-    )
+    assert db._last_topk_strategy == "i8stor_xla"
     Vn = normalize_batch(V.copy())
     recall = np.mean([
         len({int(h[K_ID]) for h in out[i]}
@@ -107,11 +102,11 @@ def test_int8_storage_mutation_semantics(db_path, rng):
     assert res[0][K_METRICS] > 0.99
 
 
-@pytest.mark.parametrize("scan_mode", ["auto", "fused"])
+@pytest.mark.parametrize("scan_mode", ["auto", "xla"])
 def test_int8_storage_mesh(db_path, rng, scan_mode):
     """int8 storage over a device mesh: rows + per-row scales shard
     together; per-shard int8 selection + dequant rescore merges over the
-    ICI top-k exactly like the f32 sharded path (XLA and Pallas lanes)."""
+    cross-device top-k exactly like the f32 sharded path."""
     from picovdb_tpu.parallel import make_mesh
 
     mesh = make_mesh()
@@ -166,7 +161,7 @@ def test_int8_storage_device_born_ingest(db_path, rng):
     import jax
     import jax.numpy as jnp
 
-    from picovdb_tpu.ops.pallas_scan import quantize_rows_i8
+    from picovdb_tpu.ops.quant import quantize_rows_i8
 
     n = 512
     V = normalize_batch(rng.normal(size=(n, DIM)).astype(np.float32))

@@ -9,7 +9,6 @@ knob mapping.
 
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from picovdb_tpu import PicoVectorDB, K_ID, K_VECTOR
 from picovdb_tpu.ops.ivf import IVFIndex, default_nlist, ef_to_nprobe
@@ -25,13 +24,6 @@ def clustered_data(rng, n, dim, n_clusters=16, spread=0.15):
     labels = rng.integers(0, n_clusters, size=n)
     pts = centers[labels] + spread * rng.normal(size=(n, dim)).astype(np.float32)
     return normalize_batch(pts), labels
-
-
-@pytest.fixture(autouse=True)
-def interpret_mode():
-    """IVF's pallas kernel runs interpreted on the CPU test mesh."""
-    with pltpu.force_tpu_interpret_mode():
-        yield
 
 
 def test_ivf_build_and_exact_recall(rng):
@@ -331,11 +323,9 @@ def test_ivf_incremental_sidecar_reload(db_path, rng):
 
 
 def test_ivf_segmax_style_recall(rng, monkeypatch):
-    """Segmax IVF kernel (probe_scan_segmax) at a scale where it routes:
-    clusters span multiple 128-row segments, so per-segment extraction at
-    the adaptive depth surfaces the true top-k (regression: with fixed
-    per_seg=4 and single-segment clusters it truncated 6 of the top-10)."""
-    monkeypatch.setenv("PICOVDB_IVF_STYLE", "segmax")
+    """Full-probe recall on large clusters (each spans many hot tiles and
+    the batch probes every list): the gathered hot-tile scan surfaces the
+    true top-k with exact rescored scores."""
     n, dim, k = 8192, 32, 10
     vectors, _ = clustered_data(rng, n, dim, n_clusters=8)
     mask = np.ones(n, dtype=bool)
@@ -358,17 +348,9 @@ def test_ivf_segmax_style_recall(rng, monkeypatch):
 
 
 def test_ivf_segmax_guard_small_clusters(rng, monkeypatch):
-    """Default routing must NOT pick segmax when clusters are smaller than
-    a segment (the concentration regime where it truncates winners): the
-    ladder path serves and recall stays high at full probe."""
-    import picovdb_tpu.ops.ivf as ivf_mod
-
-    def _boom(*a, **kw):  # pragma: no cover - failure path
-        raise AssertionError("segmax routed despite single-segment clusters")
-
-    monkeypatch.delenv("PICOVDB_IVF_STYLE", raising=False)
-    monkeypatch.setattr(ivf_mod, "probe_scan_segmax", _boom)
-    ivf_mod._make_ivf_search.cache_clear()
+    """Small clusters (many lists inside one tile, the regime where a
+    per-segment extraction truncated winners): the probe keeps its whole
+    k+guard band per query and recall stays high at full probe."""
     n, dim, k = 3000, 64, 10
     vectors, _ = clustered_data(rng, n, dim, n_clusters=32)
     mask = np.ones(n, dtype=bool)
@@ -382,7 +364,6 @@ def test_ivf_segmax_guard_small_clusters(rng, monkeypatch):
     recall = np.mean(
         [len(set(slots[i]) & set(oidx[i])) / k for i in range(16)]
     )
-    ivf_mod._make_ivf_search.cache_clear()
     assert recall >= 0.9, recall
 
 
@@ -450,7 +431,7 @@ def test_ivf_i8only_layout_parity(rng, monkeypatch):
     queries = normalize_batch(
         vectors[:16] + 0.01 * rng.normal(size=(16, dim)).astype(np.float32)
     )
-    dev = DeviceIndex(dim, mixed_precision=False, int8_tier=False)
+    dev = DeviceIndex(dim)
     dev.full_upload(vectors, mask)
 
     ivf8 = IVFIndex.build(vectors, mask, nlist=32, dim=dim, i8_only=True)
@@ -487,7 +468,7 @@ def test_ivf_i8only_device_build_path(rng, monkeypatch):
     n, dim, k = 2048, 64, 5
     vectors, _ = clustered_data(rng, n, dim)
     mask = np.ones(n, dtype=bool)
-    dev = DeviceIndex(dim, mixed_precision=False, int8_tier=False)
+    dev = DeviceIndex(dim)
     dev.full_upload(vectors, mask)
     ivf8 = IVFIndex.build(
         None, mask[: n], dim=dim, nlist=16,
@@ -547,9 +528,8 @@ def test_engine_i8only_policy_forced(db_path, rng, monkeypatch):
 def test_ivf_int8_wide_guard_at_high_dim(rng, monkeypatch):
     """dim >= IVF_I8_MIN_DIM defaults the int8 selection band to k+22
     (engine-measured at the 4M ceiling: the k+6 band sheds ~2% of true
-    top-10 to selection noise while k+22 recovers recall AND speed —
-    bench/results/ivf4m_guard22_r3.*). This drives the k_sel=32 kernel
-    shapes in interpret mode and asserts full-probe parity with the
+    top-10 to selection noise while k+22 recovers recall). This drives
+    the k_sel=32 probe shapes and asserts full-probe parity with the
     exact oracle."""
     monkeypatch.setenv("PICOVDB_IVF_I8", "1")  # keep the mirror on
     from picovdb_tpu.ops.ivf import _ivf_guard

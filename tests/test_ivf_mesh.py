@@ -17,14 +17,6 @@ from picovdb_tpu.parallel.ivf_mesh import ShardedIVF
 from picovdb_tpu.utils import normalize_batch
 from test_ivf import clustered_data
 
-# NOTE: unlike test_ivf.py, these tests deliberately do NOT wrap in
-# pltpu.force_tpu_interpret_mode(): the mosaic TPU interpreter's
-# core-emulation barriers deadlock when 8 shard_map bodies run pallas_call
-# concurrently on the CPU mesh. Off-TPU, ShardedIVF.search already passes
-# interpret=True (the plain pallas interpreter, which handles the
-# scalar-prefetch grid and is shard_map-safe — same approach as
-# tests/test_sharded.py).
-
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 2, reason="needs multiple (virtual) devices"
 )
@@ -192,7 +184,7 @@ def test_engine_mesh_int8_only_ivf(db_path, rng, monkeypatch):
 
 def test_sharded_ivf_int8_parity(rng, monkeypatch):
     """Per-shard int8 postings select the same winners as the f32 sweep
-    through the ICI merge."""
+    through the cross-device merge."""
     monkeypatch.setenv("PICOVDB_IVF_I8", "1")  # force below IVF_I8_MIN_DIM
     mesh = make_mesh()
     n, dim, k = 4096, 32, 8
@@ -217,14 +209,13 @@ def test_sharded_ivf_int8_parity(rng, monkeypatch):
 
 def test_engine_mesh_capacity_triggered_i8_only(db_path, rng, monkeypatch):
     """A bf16-storage mesh store whose classic per-shard IVF mirror would
-    overflow the per-chip HBM budget auto-selects the int8-only postings
-    layout — the mesh analog of the single-device capacity-ceiling rule
-    (engine._ivf_i8_only, now per-shard). Past ~30M rows on a v5e-8 this
-    is what keeps an ANN tier possible at all."""
+    overflow the per-device memory budget auto-selects the int8-only
+    postings layout — the mesh analog of the single-device
+    capacity-ceiling rule (engine._ivf_i8_only, now per-shard)."""
     monkeypatch.setenv("PICOVDB_IVF_I8", "1")  # enable below IVF_I8_MIN_DIM
-    # a deliberately tiny per-chip budget stands in for "corpus near the
-    # per-shard HBM ceiling" at test scale
-    monkeypatch.setenv("PICOVDB_IVF_BUDGET_GB", "0.00001")
+    # a deliberately tiny per-device budget stands in for "corpus near
+    # the per-shard memory limit" at test scale
+    monkeypatch.setenv("PICOVDB_DEVICE_MEMORY_MB", "0.01")
     mesh = make_mesh()
     dim, n, k = 32, 4096, 8
     vectors, _ = clustered_data(rng, n, dim)
@@ -256,7 +247,7 @@ def test_engine_mesh_capacity_triggered_i8_only(db_path, rng, monkeypatch):
     assert r2[0][K_ID] == "42"
 
     # with an ample budget the same store keeps the classic layout
-    monkeypatch.setenv("PICOVDB_IVF_BUDGET_GB", "13")
+    monkeypatch.setenv("PICOVDB_DEVICE_MEMORY_MB", str(13 * 1024))
     db3 = PicoVectorDB(
         embedding_dim=dim, storage_file=db_path, mesh=mesh, index="ivf",
         storage_dtype="bfloat16", ivf_nlist=16,

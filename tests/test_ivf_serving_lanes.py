@@ -11,21 +11,12 @@ chunk), with the all-empty-probe self-heal re-serving exact from the
 dispatch-time snapshot.
 """
 
+import jax
 import numpy as np
 import pytest
-from jax.experimental import pallas as pl  # noqa: F401
-import jax
-from jax.experimental import pallas
-import jax.experimental.pallas.tpu as pltpu
 
 from picovdb_tpu import PicoVectorDB, K_ID
 from test_ivf import clustered_data
-
-
-@pytest.fixture(autouse=True)
-def interpret_mode():
-    with pltpu.force_tpu_interpret_mode():
-        yield
 
 
 @pytest.fixture

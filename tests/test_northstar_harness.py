@@ -1,7 +1,7 @@
 """Smoke test for the 10M north-star harness at toy scale.
 
 `bench/northstar_10m.py` is the scale artifact for BASELINE.md's second
-north star (10M x 1024 over a v5e-8): columnar ingest -> sharded
+north star (10M x 1024 over a device mesh): columnar ingest -> sharded
 persistence -> reload -> row-sharded mesh serving -> oracle assertion.
 This runs the same script end-to-end at 16k rows so the full pipeline
 (not just its pieces) stays covered by the suite; the script configures

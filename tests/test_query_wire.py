@@ -220,7 +220,6 @@ def test_batched_parity_filtered(db_path, rng):
 
 
 def test_columnar_parity_on_ivf_store(db_path, rng):
-    from jax.experimental.pallas import tpu as pltpu
     from test_ivf import clustered_data
 
     vecs, _ = clustered_data(rng, 2000, 32)
@@ -232,11 +231,10 @@ def test_columnar_parity_on_ivf_store(db_path, rng):
         [{K_ID: f"v{i}", "_vector_": vecs[i]} for i in range(len(vecs))]
     )
     q = (vecs[:24] + 0.01 * rng.normal(size=(24, 32))).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        ids16, sc16 = db.query_columnar(q, top_k=5, batch_size=8)
-        assert db._last_topk_strategy.startswith("ivf")
-        db._query_wire = "float32"
-        ids32, sc32 = db.query_columnar(q, top_k=5, batch_size=8)
+    ids16, sc16 = db.query_columnar(q, top_k=5, batch_size=8)
+    assert db._last_topk_strategy.startswith("ivf")
+    db._query_wire = "float32"
+    ids32, sc32 = db.query_columnar(q, top_k=5, batch_size=8)
     np.testing.assert_array_equal(ids16, ids32)
     np.testing.assert_allclose(sc16, sc32, rtol=0, atol=2e-3)
 

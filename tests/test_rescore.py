@@ -239,8 +239,8 @@ def test_device_born_host_shadow_int4(db_path, rng):
 
 
 def test_wide_topk_on_int8_storage_does_not_crash(db_path, rng):
-    """k beyond the Pallas VMEM block routes to the dense XLA fallback
-    (ops/pallas_scan.py fused_topk_i8) instead of asserting."""
+    """k far past the usual guard band (600 of 2048 rows) serves through
+    the int8 route without error."""
     data = normalize_batch(
         rng.normal(size=(2048, DIM)).astype(np.float32)
     )
@@ -253,7 +253,7 @@ def test_wide_topk_on_int8_storage_does_not_crash(db_path, rng):
 def test_guard_saturation_escalates(db_path, rng):
     """Clusters wider than the guard band (256 near-duplicates vs guard
     128) trigger the one-shot 4x-wider re-dispatch and still serve exact
-    top-k (the TPU-measured failure geometry, scaled down)."""
+    top-k (a failure geometry measured at 100k x 256, scaled down)."""
     data = _neartie_corpus(rng, n=4096, n_centers=16)  # ~256 mates/cluster
     q = data[rng.integers(0, len(data), 8)] + 0.005 * rng.normal(
         size=(8, DIM)

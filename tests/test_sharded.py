@@ -124,9 +124,9 @@ def test_dp_plus_shard_mesh(rng):
 
 
 def test_sharded_pallas_kernel_matches_oracle(rng):
-    """The production multi-chip path — fused Pallas kernel inside
-    shard_map (check_vma skipped) — against the NumPy oracle (VERDICT r1:
-    this path previously had zero coverage)."""
+    """The multi-device path with a sparse active mask — per-shard masked
+    top-k inside shard_map, merged across shards — against the NumPy
+    oracle, scores and indices both."""
     mesh = make_mesh()
     nsh = mesh.shape["shard"]
     n, dim, k = 128 * nsh, 128, 6
@@ -140,7 +140,7 @@ def test_sharded_pallas_kernel_matches_oracle(rng):
     m = jax.device_put(mask, NamedSharding(mesh, P("shard")))
     q = jax.device_put(queries, NamedSharding(mesh, P()))
 
-    fn = make_sharded_topk(mesh, "shard", k, use_pallas=True, interpret=True)
+    fn = make_sharded_topk(mesh, "shard", k)
     vals, idxs = map(np.asarray, fn(q, v, m))
 
     scores = queries @ vectors.T
@@ -155,30 +155,36 @@ def test_sharded_pallas_kernel_matches_oracle(rng):
 
 
 def test_sharded_engine_fused_scan_mode(db_path, rng):
-    """Engine-level mesh + scan_mode='fused': the sharded Pallas path must
-    agree with the sharded XLA path end to end."""
+    """scan_mode='fused' named a removed kernel route and is rejected; the
+    sharded path under an explicit scan_mode='xla' agrees with the default
+    end to end, through mutations and filtered queries."""
     dim = 16
     items, vecs = make_items(rng, 160, dim, extra=lambda i: {"tag": i % 3})
     db_x = PicoVectorDB(
         embedding_dim=dim, storage_file=db_path + "_xla", mesh=make_mesh()
     )
     db_x.upsert(items)
+    with pytest.raises(ValueError, match="fused"):
+        PicoVectorDB(
+            embedding_dim=dim, storage_file=db_path + "_pal",
+            mesh=make_mesh(), scan_mode="fused",
+        )
     db_p = PicoVectorDB(
         embedding_dim=dim, storage_file=db_path + "_pal", mesh=make_mesh(),
-        scan_mode="fused",
+        scan_mode="xla",
     )
     db_p.upsert(items)
 
     qs = rng.normal(size=(4, dim)).astype(np.float32)
     rx = db_x.query(qs, top_k=5)
     rp = db_p.query(qs, top_k=5)
-    assert db_p._last_topk_strategy == "sharded_scan_pallas"
+    assert db_p._last_topk_strategy == "sharded_scan"
     for a, b in zip(rx, rp):
         assert [x[K_ID] for x in a] == [x[K_ID] for x in b]
         np.testing.assert_allclose(
             [x[K_METRICS] for x in a], [x[K_METRICS] for x in b], rtol=1e-5
         )
-    # mutations + filtered queries through the pallas path
+    # mutations + filtered queries through the sharded path
     db_p.delete(["id7"])
     rf = db_p.query(qs[0], top_k=10, where={"tag": 1})
     assert all(r["tag"] == 1 and r[K_ID] != "id7" for r in rf)
@@ -266,7 +272,7 @@ def test_sharded_build_cache_is_bounded():
 
 def test_mesh_device_grow_keeps_append_epoch_incremental(db_path, rng):
     """Bucket-crossing append on a MESH store: the row-sharded planes grow
-    in place (pad + reshard over ICI), no host materialization."""
+    in place (pad + reshard across devices), no host materialization."""
     import jax.numpy as jnp
 
     from picovdb_tpu.constants import ROW_PAD

@@ -124,7 +124,6 @@ def test_last_topk_strategy_recorded(db_path, rng):
     db.query(vecs[0])
     assert db._last_topk_strategy in (
         "xla_topk",
-        "pallas_fused",
         "sharded_scan",
         "ivf",
     )
@@ -166,7 +165,7 @@ def test_last_query_debug(db_path, rng):
     db.upsert(items)
     db.query(vecs[0], top_k=3)
     dbg = db.last_query_debug()
-    assert dbg["strategy"] in ("xla_topk", "pallas_fused", "sharded_scan", "ivf", "ivf_i8")
+    assert dbg["strategy"] in ("xla_topk", "sharded_scan", "ivf", "ivf_i8")
     assert dbg["k_eff"] == 3
     assert dbg["sync_mode"] in ("full", "incremental")
     assert dbg["dirty"] is False
@@ -175,26 +174,23 @@ def test_last_query_debug(db_path, rng):
 
 def test_ivf_nprobe_ctor_override(db_path, rng):
     """ivf_nprobe pins the probe width regardless of ef knobs."""
-    from jax.experimental.pallas import tpu as pltpu
-
     centers = rng.normal(size=(8, 16)).astype(np.float32)
     vecs = (centers[rng.integers(0, 8, 300)]
             + 0.1 * rng.normal(size=(300, 16))).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        db = PicoVectorDB(
-            embedding_dim=16, storage_file=db_path, index="ivf",
-            ivf_nlist=8, ivf_nprobe=8,  # probe everything -> exact
-        )
-        db.upsert([{K_ID: f"x{i}", K_VECTOR: vecs[i]} for i in range(300)])
-        res = db.query(vecs[33], top_k=1, ef_search=1)
-        assert res[0][K_ID] == "x33"
-        assert db._last_topk_strategy.startswith("ivf")
+    db = PicoVectorDB(
+        embedding_dim=16, storage_file=db_path, index="ivf",
+        ivf_nlist=8, ivf_nprobe=8,  # probe everything -> exact
+    )
+    db.upsert([{K_ID: f"x{i}", K_VECTOR: vecs[i]} for i in range(300)])
+    res = db.query(vecs[33], top_k=1, ef_search=1)
+    assert res[0][K_ID] == "x33"
+    assert db._last_topk_strategy.startswith("ivf")
 
 
 def test_ivf_engine_plain_cpu_no_interpret_ctx(db_path, rng):
-    """index="ivf" must work off-TPU without any interpret context manager:
-    the search threads plain pallas interpret mode itself (a CPU user of the
-    reference can set index="ivf" and expect it to run, pico_vdb.py:171)."""
+    """index="ivf" must work on a plain CPU backend with no special setup
+    (a CPU user of the reference can set index="ivf" and expect it to
+    run, pico_vdb.py:171)."""
     centers = rng.normal(size=(8, 16)).astype(np.float32)
     vecs = (centers[rng.integers(0, 8, 300)]
             + 0.1 * rng.normal(size=(300, 16))).astype(np.float32)
